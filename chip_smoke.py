@@ -1,0 +1,740 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``centermask2_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs one card
+
+It builds the port's CUDA kernels from ``centermask2_tpu_torch/csrc``,
+holds each against its plain PyTorch version on the card, serves the
+V-39-eSE flagship (random weights from a seed) through the kernels, and
+times the kernels and the end-to-end latency. Phases, in order:
+
+1. card:    the card's name and power limit (nvidia-smi).
+2. build:   nvcc of every kernel, in parallel; build seconds, and each
+            kernel's registers/spills from ``-Xptxas=-v``.
+3. kernels: NMS keep sets bit-equal to the plain version at N = 1024,
+            2048, 8192 (invalid rows, duplicate and zero-area boxes,
+            score ties, class offsets, a batch of 2); ROIAlign on the
+            P3-P5 shapes of 800x1088 within tolerance in f32 and bf16, on
+            one image and on a batch of 2; median times of kernel and
+            plain version on these synthetic inputs.
+4. serve:   4 requests (3 at 800x1088, 1 at 1344x1344) in bf16 through
+            ``build_centermask`` + ``inference``, with the launch counts
+            reset before and read after (each kernel once per request),
+            one request under CUDA's sync-debug mode (no host sync on the
+            path), and an f32 request through the kernels and through the
+            plain versions (swapped in for the kernels), compared slot by
+            slot.
+5. time:    each kernel and its plain version on the inputs captured
+            from a served bf16 800x1088 request (the times of the
+            ``kernels`` line); per-image latency at B = 1, 800x1088 and
+            1344x1344, bf16 and f32, over timed windows of a few seconds,
+            twice, with host enqueue and CPU time beside the device
+            events; a profiler breakdown of one bf16 800x1088 request.
+6. result:  a ``{"kernels": [...]}`` line, then the last line
+            ``{"ok": true, "device": {...}}``.
+
+A failing phase raises, and the run exits non-zero without the last line.
+It also exits non-zero, printing no result, with no CUDA device or when
+the package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import json
+import os
+import resource
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PIXEL_MEAN = (103.53, 116.28, 123.675)
+
+# H100 SXM published peaks (dense), used for the bounds: HBM bytes/s and
+# f32 non-tensor-core flop/s (both kernels do f32 vector arithmetic).
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+NMS_SOURCE = "centermask2_tpu_torch/csrc/nms.cu"
+ROI_SOURCE = "centermask2_tpu_torch/csrc/roi_align.cu"
+NMS_REPLACES = "centermask2_tpu/ops/nms_pallas.py:46"
+ROI_REPLACES = "centermask2_tpu/ops/roi_align_pallas.py:46"
+
+# tolerances of the kernel/plain comparisons on the card
+ROI_F32_ATOL = 1e-5  # f32 sums in another order
+ROI_BF16_RTOL = 2.0 ** -7  # both sides round an f32 sum to bf16: <= 1 ulp
+ROI_BF16_ATOL = 1e-6
+E2E_TOL = {"scores": (1e-6, 1e-5), "pred_boxes": (1e-6, 1e-4),
+           "pred_masks": (0.0, 1e-4), "mask_scores": (1e-3, 1e-4)}
+
+# end-to-end timing: each canvas and dtype gets a warm-up, then a timed
+# window of at least WINDOW_S seconds and MIN_TIMED requests; the sweep
+# over canvases and dtypes runs twice (two windows each)
+WARMUP_S = 1.5
+WINDOW_S = 4.0
+MIN_TIMED = 10
+PASSES = 2
+
+NMS_SIZES = (1024, 2048, 8192)
+# (seed, H, W) of the served requests; the first is also the f32 check
+REQUESTS = ((100, 800, 1088), (101, 800, 1088), (102, 800, 1088),
+            (103, 1344, 1344))
+
+
+def flagship_cfg():
+    """``configs/centermask/zy_model_config.yaml`` merged over the defaults,
+    built in Python (no yaml)."""
+    from centermask2_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    # Base-CenterMask-VoVNet.yaml
+    cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
+    cfg.MODEL.BACKBONE.NAME = "build_fcos_vovnet_fpn_backbone"
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    cfg.MODEL.VOVNET.OUT_FEATURES = ["stage3", "stage4", "stage5"]
+    cfg.MODEL.FPN.IN_FEATURES = ["stage3", "stage4", "stage5"]
+    cfg.MODEL.PROPOSAL_GENERATOR.NAME = "FCOS"
+    cfg.MODEL.FCOS.POST_NMS_TOPK_TEST = 50
+    cfg.MODEL.MASK_ON = True
+    cfg.MODEL.MASKIOU_ON = True
+    cfg.MODEL.ROI_HEADS.NAME = "CenterROIHeads"
+    cfg.MODEL.ROI_HEADS.IN_FEATURES = ["p3", "p4", "p5"]
+    cfg.MODEL.ROI_MASK_HEAD.NAME = "SpatialAttentionMaskHead"
+    cfg.MODEL.ROI_MASK_HEAD.ASSIGN_CRITERION = "ratio"
+    cfg.MODEL.ROI_MASK_HEAD.NUM_CONV = 4
+    cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    cfg.DATASETS.TRAIN = ("coco_2017_train",)
+    cfg.DATASETS.TEST = ("coco_2017_val",)
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10000
+    cfg.SOLVER.IMS_PER_BATCH = 16
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.STEPS = (60000, 80000)
+    cfg.SOLVER.MAX_ITER = 90000
+    cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
+    # zy_model_config.yaml
+    cfg.MODEL.WEIGHTS = ""
+    cfg.MODEL.VOVNET.CONV_BODY = "V-39-eSE"
+    cfg.SOLVER.STEPS = (210000, 250000)
+    cfg.SOLVER.MAX_ITER = 270000
+    cfg.OUTPUT_DIR = "output/zy_outputs"
+    return cfg
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_gpu_ms(fn, launches: int = 20, repeats: int = 7) -> float:
+    """Median device ms per call of ``fn``: each repeat queues ``launches``
+    calls behind a GPU sleep that outlasts their enqueue, so the host runs
+    ahead and the events time the device work back to back, not the
+    host's enqueue. (A ``fn`` that syncs the host, as the plain NMS's
+    fixpoint loop does, is timed with its host time all the same.)"""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # torch.cuda._sleep spins SM clock cycles (1.98 GHz at most)
+    cycles = int(1.98e9 * max(0.025, 2.0 * launches * enqueue_s))
+    per_call = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        stop.synchronize()
+        per_call.append(start.elapsed_time(stop) / launches)
+    return float(np.median(per_call))
+
+
+# --------------------------------------------------------------- kernels
+def nms_inputs(rng: np.random.RandomState, n: int):
+    """Clustered boxes of 80 classes with invalid rows, exact duplicates,
+    zero-area boxes (pairs of them have union 0) and score ties."""
+    n_obj = 40
+    obj = rng.rand(n_obj, 2) * 1000.0
+    pick = rng.randint(0, n_obj, n)
+    centers = obj[pick] + rng.randn(n, 2) * 12
+    sizes = 30 + rng.rand(n, 2) * 120
+    boxes = np.concatenate([centers, centers + sizes], 1).astype(np.float32)
+    classes = (pick % 80).astype(np.int32)
+    scores = rng.rand(n).astype(np.float32)
+    valid = rng.rand(n) > 0.1
+    dup = rng.choice(n, n // 16, replace=False)
+    boxes[dup] = boxes[(dup + 1) % n]
+    classes[dup] = classes[(dup + 1) % n]
+    zero = rng.choice(n, n // 16, replace=False)
+    boxes[zero, 2:] = boxes[zero, :2]
+    boxes[zero[: len(zero) // 2]] = np.float32(5.0)  # identical points
+    ties = rng.choice(n, n // 4, replace=False)
+    scores[ties] = np.round(scores[ties] * 8) / 8
+    return boxes, scores, classes, valid
+
+
+@contextlib.contextmanager
+def kernels_swapped(nms_fn, roi_fn):
+    """Route the ops' kernel calls to ``nms_fn``/``roi_fn`` (same
+    signatures as ``_kernels.nms_keep_sorted``/``_kernels.roi_align``)
+    inside the block; the port itself has one path, by device."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    saved = (_kernels.nms_keep_sorted, _kernels.roi_align)
+    _kernels.nms_keep_sorted, _kernels.roi_align = nms_fn, roi_fn
+    try:
+        yield saved
+    finally:
+        _kernels.nms_keep_sorted, _kernels.roi_align = saved
+
+
+def plain_kernels():
+    """The kernels' plain PyTorch versions in their place, on the card."""
+    from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
+    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align_plain
+
+    return kernels_swapped(greedy_keep_sorted_plain,
+                           multilevel_roi_align_plain)
+
+
+def nms_row(sboxes, svalid, thr: float, what: str) -> dict:
+    """Median times of kernel 1 and its plain version on sorted boxes
+    (B, N, 4) and validity (B, N), and the bound for this input."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
+
+    ms = time_gpu_ms(lambda: _kernels.nms_keep_sorted(sboxes, svalid, thr))
+    plain_ms = time_gpu_ms(
+        lambda: greedy_keep_sorted_plain(sboxes, svalid, thr), launches=3,
+        repeats=5)
+    kept = int(_kernels.nms_keep_sorted(sboxes, svalid, thr).sum())
+    B, n = svalid.shape
+    pairs = B * n * (n - 1) // 2
+    flops = 13 * pairs + 3 * B * n  # min/max/sub x2, clamp x2, mul, add, sub, div, cmp
+    nbytes = B * (n * 16 + n + n)  # boxes, valid in; keep out
+    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
+        "operations"
+    log(f"  nms {what}: N={n} B={B}, {int(svalid.sum())} valid, {kept} kept; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
+        f"({by})")
+    return {"name": "nms", "route": "cuda", "source": NMS_SOURCE,
+            "replaces": NMS_REPLACES, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_nms(dev) -> int:
+    """Keep sets of kernel and plain version, bit-equal in every case.
+    Returns the largest count of differing keep rows over all cases."""
+    from centermask2_tpu_torch.ops import batched_nms, nms_keep_mask
+
+    thr = 0.6
+    rng = np.random.RandomState(0)
+    worst = 0
+    for n in NMS_SIZES:
+        batch = [nms_inputs(rng, n) for _ in range(2)]
+        boxes, scores, classes, valid = (
+            torch.from_numpy(np.stack([b[i] for b in batch])).to(dev)
+            for i in range(4))
+        valid = valid.bool()
+        for name, run in (
+                ("class-offset", lambda: batched_nms(
+                    boxes, scores, classes, valid, thr)),
+                ("plain-boxes", lambda: nms_keep_mask(
+                    boxes, scores, valid, thr))):
+            kk = run()
+            with plain_kernels():
+                kp = run()
+            torch.cuda.synchronize()
+            diff = int((kk != kp).sum())
+            worst = max(worst, diff)
+            if diff:
+                raise AssertionError(
+                    f"NMS n={n} {name}: kernel keeps {int(kk.sum())}, plain "
+                    f"{int(kp.sum())}, {diff} rows differ")
+            log(f"  nms n={n} B=2 {name}: keep sets bit-equal "
+                f"({int(kk[0].sum())}, {int(kk[1].sum())} kept)")
+
+    # synthetic clustered boxes at the main path's shape: 1000 candidates
+    # padded to 1024, one image, class-offset boxes (the served request's
+    # own input is timed in [time])
+    boxes, scores, classes, valid = (torch.from_numpy(a).to(dev)[None]
+                                     for a in nms_inputs(rng, 1024))
+    valid = valid.bool()
+    max_coord = torch.where(valid[..., None], boxes, 0.0).amax()
+    shifted = boxes + (classes.float() * (max_coord + 1.0))[..., None]
+    order = torch.sort(torch.where(valid, scores, -torch.inf), dim=1,
+                       descending=True, stable=True).indices
+    sboxes = torch.gather(shifted, 1, order[..., None].expand(1, 1024, 4))
+    svalid = torch.gather(valid, 1, order).contiguous()
+    nms_row(sboxes.contiguous(), svalid, thr, "synthetic clustered boxes")
+    return worst
+
+
+def roi_inputs(rng: np.random.RandomState, H: int, W: int, R: int,
+               C: int, B: int, dev):
+    shapes = [(H // s, W // s) for s in (8, 16, 32)]
+    feats = [torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).to(dev)
+             for h, w in shapes]
+    xy = rng.rand(R, 2) * [W, H]
+    wh = 4 + rng.rand(R, 2) * [W / 2, H / 2]
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
+    boxes[:5, 0] = -30.0  # crossing the left border
+    boxes[5:10, 3] = H + 40.0  # crossing the bottom border
+    boxes[10:13] = [W + 20.0, H + 20.0, W + 90.0, H + 60.0]  # outside
+    boxes[13:15] = [10.0, 10.0, 10.0, 10.0]  # zero area
+    boxes[15:18] = [[0.0, 0.0, W, H], [-50.0, 20.0, W - 30.0, H + 10.0],
+                    [100.0, 50.0, W - 100.0, H - 20.0]]  # large: P5
+    return feats, torch.from_numpy(boxes).to(dev)
+
+
+def roi_touched_rows(boxes, bidx, levels, feats, scales, o, s) -> int:
+    """Distinct feature pixels (image, level, y, x) whose taps carry
+    weight for these ROIs: the input the op must read, per channel."""
+    from centermask2_tpu_torch.ops.roi_align import _axis_coords, _bilinear_taps
+
+    rows = set()
+    b = boxes.float().cpu()
+    lv = levels.long().cpu()
+    im = bidx.long().cpu()
+    for r in range(b.shape[0]):
+        f = feats[int(lv[r])]
+        H, W = f.shape[2], f.shape[3]
+        ys, xs = _axis_coords(b[r:r + 1], torch.tensor([scales[int(lv[r])]]),
+                              o, s, True)
+        P = (o * s) ** 2
+        ys = ys[:, :, None].expand(1, o * s, o * s).reshape(1, P)
+        xs = xs[:, None, :].expand(1, o * s, o * s).reshape(1, P)
+        yl, xl, w = _bilinear_taps(ys, xs, torch.tensor(float(H)),
+                                   torch.tensor(float(W)))
+        yh = torch.clamp(yl + 1, max=H - 1)
+        xh = torch.clamp(xl + 1, max=W - 1)
+        for t, (yy, xx) in enumerate(((yl, xl), (yl, xh), (yh, xl), (yh, xh))):
+            sel = w[0, :, t] != 0
+            for y, x in zip(yy[0][sel].tolist(), xx[0][sel].tolist()):
+                rows.add((int(im[r]), int(lv[r]), y, x))
+    return len(rows)
+
+
+def roi_row(feats, boxes, bidx, levels, scales, o: int, s: int,
+            aligned: bool, what: str) -> dict:
+    """Median times of kernel 2 and its plain version on one input, and
+    the bound for the pixels this input's ROIs touch."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align_plain
+
+    args = (feats, boxes, bidx, levels, scales, o, s, aligned)
+    ms = time_gpu_ms(lambda: _kernels.roi_align(*args))
+    plain_ms = time_gpu_ms(lambda: multilevel_roi_align_plain(*args),
+                           launches=5)
+    R, C = boxes.shape[0], feats[0].shape[1]
+    touched = roi_touched_rows(boxes, bidx, levels, feats, scales, o, s)
+    elt = feats[0].element_size()
+    nbytes = touched * C * elt + R * C * o * o * elt + R * (16 + 4 + 4)
+    flops = R * C * o * o * (s * s * 12 + 1)
+    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
+        "operations"
+    log(f"  roi_align {what}: {feats[0].dtype} R={R} C={C}, levels used "
+        f"{sorted(set(levels.tolist()))}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}: {touched} touched "
+        f"pixels x {C} ch read, {R}x{C}x{o}x{o} written)")
+    return {"name": "roi_align", "route": "cuda", "source": ROI_SOURCE,
+            "replaces": ROI_REPLACES, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_roi_align(dev) -> float:
+    """Kernel 2 against its plain version in f32 and bf16, on one image
+    and on a batch of 2 with ROIs of both images mixed. Returns the
+    largest abs error."""
+    from centermask2_tpu_torch.ops import _kernels, assign_boxes_by_ratio
+    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align_plain
+    from centermask2_tpu_torch.structures import boxes as box_ops
+
+    H, W, R, C, o, s = 800, 1088, 50, 256, 14, 2
+    scales = [1 / 8, 1 / 16, 1 / 32]
+    rng = np.random.RandomState(1)
+    worst = 0.0
+    for B in (1, 2):
+        feats32, boxes = roi_inputs(rng, H, W, R, C, B, dev)
+        levels = assign_boxes_by_ratio(
+            box_ops.area(boxes), torch.full((R,), float(H * W), device=dev),
+            3, 5)
+        bidx = (torch.arange(R, device=dev) % B).to(torch.int32)
+        for name, feats in (("f32", feats32),
+                            ("bf16", [f.bfloat16() for f in feats32])):
+            k = _kernels.roi_align(feats, boxes, bidx, levels, scales, o, s,
+                                   True)
+            p = multilevel_roi_align_plain(feats, boxes, bidx, levels, scales,
+                                           o, s, True)
+            torch.cuda.synchronize()
+            if k.shape != (R, C, o, o) or k.dtype != feats[0].dtype:
+                raise AssertionError(f"roi_align {name}: {k.shape} {k.dtype}")
+            d = (k.float() - p.float()).abs()
+            err = float(d.max())
+            if name == "f32":
+                ok, tol = err <= ROI_F32_ATOL, f"atol {ROI_F32_ATOL}"
+            else:
+                ok = bool((d <= ROI_BF16_RTOL * p.float().abs()
+                           + ROI_BF16_ATOL).all())
+                tol = f"|d| <= 2^-7*|plain| + {ROI_BF16_ATOL}"
+            if not ok or not torch.isfinite(k).all():
+                raise AssertionError(f"roi_align {name} B={B}: max abs err "
+                                     f"{err} outside {tol}")
+            worst = max(worst, err)
+            log(f"  roi_align {name} B={B} (ROIs of images "
+                f"{sorted(set(bidx.tolist()))}) R={R} C={C} P3-P5 of "
+                f"{H}x{W}: max abs err {err:.3e} (tolerance {tol}), levels "
+                f"used {sorted(set(levels.tolist()))}")
+        if B == 1:  # synthetic input at the main path's shapes
+            roi_row([f.bfloat16() for f in feats32], boxes, bidx, levels,
+                    scales, o, s, True, "synthetic boxes")
+            roi_row(feats32, boxes, bidx, levels, scales, o, s, True,
+                    "synthetic boxes")
+    return worst
+
+
+# ----------------------------------------------------------------- serve
+def make_image(seed: int, H: int, W: int, dev) -> torch.Tensor:
+    """A normalized (1, H, W, 3) BGR - mean image from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((1, H, W, 3), generator=g) * 255.0
+    return (img - torch.tensor(PIXEL_MEAN)).to(dev)
+
+
+def build_model(cfg, dev):
+    from centermask2_tpu_torch import build_centermask
+
+    model = build_centermask(cfg, device=dev, seed=0)
+    # the prior bias (-4.6) leaves every random-weight score under the
+    # 0.05 threshold; at 0 the decode yields real candidates
+    with torch.no_grad():
+        model.fcos_head.cls_logits.bias.zero_()
+    return model
+
+
+def check_outputs(out, B: int, K: int, what: str) -> int:
+    shapes = {"locations": (B, K, 2), "mask_scores": (B, K),
+              "pred_boxes": (B, K, 4), "pred_classes": (B, K),
+              "pred_masks": (B, K, 1, 28, 28), "scores": (B, K),
+              "valid": (B, K)}
+    for f, shp in shapes.items():
+        t = getattr(out, f)
+        if tuple(t.shape) != shp:
+            raise AssertionError(f"{what}: {f} shape {tuple(t.shape)} != {shp}")
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: {f} has non-finite values")
+    if out.pred_classes.dtype != torch.int32:
+        raise AssertionError(f"{what}: pred_classes {out.pred_classes.dtype}")
+    n = int(out.valid.sum())
+    if n == 0:
+        raise AssertionError(f"{what}: no valid detection")
+    return n
+
+
+def serve(dev):
+    from centermask2_tpu_torch.ops import _kernels
+
+    cfg = flagship_cfg()
+    model = build_model(cfg, dev)
+    K = cfg.MODEL.FCOS.POST_NMS_TOPK_TEST
+    images = [make_image(seed, H, W, dev) for seed, H, W in REQUESTS]
+    model.inference(images[0])  # warm-up: cuDNN handles, allocator
+    torch.cuda.synchronize()
+
+    _kernels.reset_launch_counts()
+    for i, ((seed, H, W), img) in enumerate(zip(REQUESTS, images)):
+        before = (_kernels.nms_launches, _kernels.roi_align_launches)
+        out = model.inference(img)
+        n = check_outputs(out, 1, K, f"request {i} {H}x{W}")
+        after = (_kernels.nms_launches, _kernels.roi_align_launches)
+        if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+            raise AssertionError(f"request {i}: launches {before} -> {after}")
+        log(f"  request {i} {H}x{W} bf16: {n} valid of {K}, launches "
+            f"nms +1 roi_align +1, top score {float(out.scores.max()):.4f}")
+    launches = {"nms": _kernels.nms_launches,
+                "roi_align": _kernels.roi_align_launches}
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.inference(images[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_outputs(out, 1, K, "sync-debug request")
+    log("  request under sync-debug mode 'error': no host sync on the path")
+
+    # f32: kernels vs plain versions on the card, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = flagship_cfg()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = build_model(cfg32, dev)
+    ok = model32.inference(images[0])
+    with plain_kernels():
+        op = model32.inference(images[0])
+    torch.cuda.synchronize()
+    n = check_outputs(ok, 1, K, "f32 kernels")
+    check_outputs(op, 1, K, "f32 plain")
+    if not torch.equal(ok.valid, op.valid):
+        raise AssertionError("f32: kernel and plain valid masks differ")
+    v = ok.valid[0]
+    if not torch.equal(ok.pred_classes[0][v], op.pred_classes[0][v]):
+        raise AssertionError("f32: classes differ")
+    for f, (rtol, atol) in E2E_TOL.items():
+        a, b = getattr(ok, f)[0][v].double(), getattr(op, f)[0][v].double()
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"f32 {f}: max abs err {err} outside "
+                                 f"rtol {rtol} atol {atol}")
+        log(f"  f32 kernels vs plain {f}: max abs err {err:.3e} "
+            f"(rtol {rtol}, atol {atol})")
+    log(f"  f32 {REQUESTS[0][1]}x{REQUESTS[0][2]}: {n} valid slots, "
+        "classes equal")
+    return {"bfloat16": model, "float32": model32}, launches, images
+
+
+# ------------------------------------------------------------------ time
+def capture_kernel_inputs(model, img) -> dict:
+    """The arguments the main path passes to each kernel in one request
+    (the request runs through the kernels as usual)."""
+    seen = {}
+
+    def recorder(name, fn):
+        def call(*args):
+            seen[name] = args
+            return fn(*args)
+        return call
+
+    from centermask2_tpu_torch.ops import _kernels
+
+    with kernels_swapped(recorder("nms", _kernels.nms_keep_sorted),
+                         recorder("roi_align", _kernels.roi_align)):
+        model.inference(img)
+    torch.cuda.synchronize()
+    if set(seen) != {"nms", "roi_align"}:
+        raise AssertionError(f"request reached only {sorted(seen)}")
+    return seen
+
+
+def gpu_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def device_ms_per_request(request, request_ms: float) -> float:
+    """Device time of one request with the host out of the way: the
+    request captured once into a CUDA graph (its ~1,500 launches overflow
+    CUDA's launch queue, so queueing them behind a GPU sleep cannot hide
+    the host), replayed back to back and timed by events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        request()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        acc = request()
+    graph.replay()
+    torch.cuda.synchronize()
+    reps = int(min(50, max(3, 1000.0 / request_ms)))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    if not torch.isfinite(acc):
+        raise AssertionError("non-finite result of the replayed request")
+    return a.elapsed_time(b) / reps
+
+
+def latency_window(model, img, seconds: float = WINDOW_S,
+                   warmup_s: float = WARMUP_S) -> dict:
+    """Per-request ms at B = 1 over a window of ``seconds`` (at least
+    ``MIN_TIMED`` requests) after ``warmup_s`` of warm-up requests, every
+    output head reduced into the result (nothing is left for the device to
+    skip). Each request is timed by CUDA events around it (``ms``) and by
+    the host's wall time to enqueue it (``enqueue``). Over the window: the
+    calling thread's CPU time as a share of the enqueue time (the thread
+    clock ticks too coarsely to read per request), Python's garbage
+    collection time, and the thread's involuntary context switches. Then
+    the device time per request, replayed as a CUDA graph."""
+    def request():
+        out = model.inference(img)
+        acc = out.locations.sum() + out.mask_scores.sum() + \
+            out.pred_boxes.sum() + out.pred_classes.sum() + \
+            out.pred_masks.sum() + out.scores.sum() + out.valid.sum()
+        return acc
+
+    t_end = time.perf_counter() + warmup_s
+    n = 0
+    while n < 3 or time.perf_counter() < t_end:
+        request()
+        n += 1
+    torch.cuda.synchronize()
+
+    gc_s = [0.0, 0.0]  # start of the running collection, total
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_s[0] = time.perf_counter()
+        else:
+            gc_s[1] += time.perf_counter() - gc_s[0]
+
+    ms, enqueue = [], []
+    cpu_s = 0.0
+    ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+    gc.callbacks.append(on_gc)
+    try:
+        t_end = time.perf_counter() + seconds
+        while len(ms) < MIN_TIMED or time.perf_counter() < t_end:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            w0, c0 = time.perf_counter(), time.thread_time()
+            acc = request()
+            c1, w1 = time.thread_time(), time.perf_counter()
+            b.record()
+            b.synchronize()
+            if not torch.isfinite(acc):
+                raise AssertionError("non-finite timed result")
+            ms.append(a.elapsed_time(b))
+            enqueue.append((w1 - w0) * 1e3)
+            cpu_s += c1 - c0
+    finally:
+        gc.callbacks.remove(on_gc)
+    ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+    dev_ms = device_ms_per_request(request, float(np.median(ms)))
+    q0, q1, q2, q3, q4 = np.percentile(ms, [0, 25, 50, 75, 100])
+    return {"n": len(ms), "warmup": n, "min": q0, "q1": q1, "median": q2,
+            "q3": q3, "max": q4, "first20": float(np.median(ms[:20])),
+            "enqueue": float(np.median(enqueue)),
+            "cpu_share": cpu_s * 1e3 / sum(enqueue),
+            "gc_ms": gc_s[1] * 1e3 / len(ms),
+            "ivcsw": (ru1.ru_nivcsw - ru0.ru_nivcsw) / len(ms),
+            "device": dev_ms}
+
+
+def profile_request(model, img) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    model.inference(img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.inference(img)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and getattr(e, "device_time_total", 0) > 0]
+    total = sum(e.device_time_total for e in evs) / 1e3
+    if total == 0:
+        log("  profiler: no device time recorded (not measured)")
+        return
+    log(f"  profiler, one bf16 800x1088 request: device kernel time "
+        f"{total:.3f} ms in {wall:.3f} ms wall (device idle share "
+        f"{max(0.0, 1 - total / wall):.3f}, profiler on)")
+    for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
+        log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from centermask2_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+
+    secs = _kernels.build()
+    log(f"[build] both kernels built in {secs:.1f} s")
+    for name, text in _kernels.build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    log("[kernels] each kernel against its plain version on the card")
+    nms_err = check_nms(dev)
+    roi_err = check_roi_align(dev)
+
+    log("[serve] V-39-eSE flagship, random weights (seed 0), cls bias 0")
+    models, launches, images = serve(dev)
+
+    log("[time] each kernel on the inputs of a served bf16 "
+        f"{REQUESTS[0][1]}x{REQUESTS[0][2]} request ({card})")
+    seen = capture_kernel_inputs(models["bfloat16"], images[0])
+    nms = nms_row(*seen["nms"], "served request")
+    roi = roi_row(*seen["roi_align"], "served request")
+    nms["max_abs_err"], roi["max_abs_err"] = nms_err, roi_err
+    del seen
+
+    log(f"[time] per-image latency, B=1, CUDA events: {PASSES} passes over "
+        f"the canvases and dtypes; each a {WARMUP_S} s warm-up, then a "
+        f"window of >= {WINDOW_S} s and >= {MIN_TIMED} requests ({card}; "
+        f"{len(os.sched_getaffinity(0))} host CPUs)")
+    for p in range(1, PASSES + 1):
+        for dtype_name, model in models.items():
+            note = "bf16" if dtype_name == "bfloat16" else "f32, TF32 off"
+            for img in (images[0], images[3]):
+                H, W = img.shape[1:3]
+                clk = gpu_clocks()
+                r = latency_window(model, img)
+                log(f"  pass {p} {H}x{W} {note}: {r['n']} requests after "
+                    f"{r['warmup']} warm-up; ms/img median {r['median']:.3f} "
+                    f"[q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] min {r['min']:.3f} "
+                    f"max {r['max']:.3f}, first 20 {r['first20']:.3f}; host "
+                    f"enqueue median {r['enqueue']:.3f}, thread CPU share "
+                    f"{r['cpu_share']:.3f}, gc {r['gc_ms']:.3f} ms/req, "
+                    f"involuntary switches {r['ivcsw']:.2f}/req; device "
+                    f"{r['device']:.3f} ms/req as a CUDA graph (idle share "
+                    f"{max(0.0, 1 - r['device'] / r['median']):.3f}); sm/max "
+                    f"MHz, C before: {clk} ({card})")
+    profile_request(models["bfloat16"], images[0])
+    torch.cuda.synchronize()
+
+    for row in (nms, roi):
+        row["launches"] = launches[row["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s total")
+    log(card)
+    log(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                for r in (nms, roi)]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""Port parity: each block of ``centermask2_tpu_torch/layers/blocks.py``
+against its JAX module, on the CPU in float32.
+
+Inputs and parameters are drawn from a seed with numpy, go through the
+JAX module (NHWC) and the port (NCHW), and the outputs must agree within
+RTOL/ATOL: both sides are float32 convolutions and reductions on the
+CPU, which differ only in summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from centermask2_tpu import layers as J  # noqa: E402
+from centermask2_tpu_torch import layers as T  # noqa: E402
+from centermask2_tpu_torch.checkpoint.from_jax import load_jax_params  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def nhwc(x):
+    return jnp.asarray(np.transpose(x, (0, 2, 3, 1)))
+
+
+def nchw(y):
+    return np.transpose(np.asarray(y), (0, 3, 1, 2))
+
+
+def run_both(jmod, tmod, params, x):
+    """Apply the JAX module to NHWC x and the port to NCHW x, the port
+    loaded from the same parameter tree."""
+    got_j = nchw(jmod.apply({"params": params}, nhwc(x)))
+    load_jax_params(tmod, params)
+    got_t = tmod(torch.from_numpy(x)).detach().numpy()
+    return got_j, got_t
+
+
+@pytest.mark.parametrize("stride,k,pad,groups", [
+    (1, 3, 1, 1), (2, 3, 1, 1), (1, 1, 0, 1), (1, 3, 1, 8)])
+def test_conv2d(stride, k, pad, groups):
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 8, 13, 11).astype(np.float32)  # odd sizes stress padding
+    params = {"conv": {
+        "kernel": rng.randn(k, k, 8 // groups, 16).astype(np.float32) * 0.1,
+        "bias": rng.randn(16).astype(np.float32) * 0.1}}
+    jmod = J.Conv2d(16, kernel_size=(k, k), strides=(stride, stride),
+                    padding=(pad, pad), groups=groups, dtype=jnp.float32)
+    tmod = T.Conv2d(8, 16, (k, k), (stride, stride), (pad, pad), groups)
+    got_j = nchw(jmod.apply({"params": params}, nhwc(x)))
+    load_jax_params(tmod, params["conv"])
+    got_t = tmod(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+
+
+def test_conv_transpose():
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 6, 7, 7).astype(np.float32)
+    params = {"kernel": rng.randn(2, 2, 4, 6).astype(np.float32),
+              "bias": rng.randn(4).astype(np.float32)}
+    got_j, got_t = run_both(J.ConvTranspose2d(4, dtype=jnp.float32),
+                            T.ConvTranspose2d(6, 4), params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+
+
+def test_frozen_batchnorm():
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 5, 4, 6).astype(np.float32)
+    params = {"frozen_scale": rng.randn(5).astype(np.float32),
+              "frozen_bias": rng.randn(5).astype(np.float32)}
+    got_j, got_t = run_both(J.FrozenBatchNorm(5), T.FrozenBatchNorm(5),
+                            params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+
+
+def test_group_norm():
+    rng = np.random.RandomState(4)
+    x = (rng.randn(2, 64, 5, 7) * 3 + 1).astype(np.float32)
+    params = {"gn": {"scale": rng.randn(64).astype(np.float32),
+                     "bias": rng.randn(64).astype(np.float32)}}
+    got_j, got_t = run_both(J.GroupNorm(64), T.GroupNorm(64), params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=1e-4, atol=1e-4)
+
+
+def test_group_norm_keeps_bf16_activations():
+    x = torch.randn(1, 32, 4, 4).bfloat16()
+    assert T.GroupNorm(32)(x).dtype == torch.bfloat16
+
+
+def test_get_norm():
+    assert isinstance(T.get_norm("FrozenBN", 4), T.FrozenBatchNorm)
+    assert isinstance(T.get_norm("GN", 32), T.GroupNorm)
+    assert T.get_norm("", 4) is None
+    with pytest.raises(NotImplementedError):
+        T.get_norm("BN", 4)
+    with pytest.raises(ValueError):
+        T.get_norm("LayerNorm", 4)
+
+
+def test_hsigmoid():
+    x = np.linspace(-5, 5, 41).astype(np.float32)
+    np.testing.assert_allclose(T.hsigmoid(torch.from_numpy(x)).numpy(),
+                               np.asarray(J.hsigmoid(jnp.asarray(x))),
+                               rtol=0, atol=0)
+
+
+def test_ese_module():
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 12, 5, 6).astype(np.float32)
+    params = {"fc": {"kernel": rng.randn(1, 1, 12, 12).astype(np.float32),
+                     "bias": rng.randn(12).astype(np.float32)}}
+    got_j, got_t = run_both(J.eSEModule(12, dtype=jnp.float32),
+                            T.eSEModule(12), params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+
+
+def test_spatial_attention():
+    rng = np.random.RandomState(6)
+    x = rng.randn(3, 8, 7, 7).astype(np.float32)
+    params = {"conv": {"kernel": rng.randn(3, 3, 2, 1).astype(np.float32)}}
+    got_j, got_t = run_both(J.SpatialAttention(dtype=jnp.float32),
+                            T.SpatialAttention(), params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL, atol=ATOL)
+
+
+def test_scale():
+    x = np.random.RandomState(7).randn(1, 4, 3, 3).astype(np.float32)
+    got_j, got_t = run_both(J.Scale(), T.Scale(),
+                            {"scale": np.array([1.7], np.float32)}, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,w", [(13, 11), (16, 16), (25, 34), (3, 3)])
+def test_max_pool2d_ceil(h, w):
+    x = np.random.RandomState(8).randn(2, 3, h, w).astype(np.float32)
+    got_j = nchw(J.max_pool2d_ceil(nhwc(x)))
+    got_t = T.max_pool2d_ceil(torch.from_numpy(x)).numpy()
+    assert got_t.shape == got_j.shape
+    np.testing.assert_array_equal(got_t, got_j)
+
+
+@pytest.mark.parametrize("norm,k,stride", [
+    ("FrozenBN", 3, 1), ("FrozenBN", 3, 2), ("FrozenBN", 1, 1), ("GN", 3, 1),
+    ("", 3, 1)])
+def test_conv_norm_act(norm, k, stride):
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 8, 10, 9).astype(np.float32)
+    params = {"conv": {"kernel": rng.randn(k, k, 8, 32).astype(np.float32)
+                       * 0.2}}
+    if not norm:
+        params["conv"]["bias"] = rng.randn(32).astype(np.float32)
+    elif norm == "FrozenBN":
+        params["norm"] = {"frozen_scale": rng.randn(32).astype(np.float32),
+                          "frozen_bias": rng.randn(32).astype(np.float32)}
+    else:
+        params["norm"] = {"gn": {"scale": rng.randn(32).astype(np.float32),
+                                 "bias": rng.randn(32).astype(np.float32)}}
+    pad = (k // 2, k // 2)
+    jmod = J.ConvNormAct(32, (k, k), (stride, stride), pad, norm=norm,
+                         dtype=jnp.float32)
+    tmod = T.ConvNormAct(8, 32, (k, k), (stride, stride), pad, norm=norm)
+    got_j, got_t = run_both(jmod, tmod, params, x)
+    np.testing.assert_allclose(got_t, got_j, rtol=1e-4, atol=1e-4)
