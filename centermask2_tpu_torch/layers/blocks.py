@@ -167,13 +167,21 @@ class FrozenBatchNorm(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm(32) with float32 moments and affine, cast back to the
     activation's dtype (JAX ``blocks.py:138-157``; flax upcasts the same
-    way)."""
+    way).
+
+    A group of one value (C/G x H x W == 1, e.g. FPN width 32 on a 1x1
+    P7) equals its mean, so JAX returns the bias exactly; F.group_norm
+    refuses such groups at batch 1 and leaves ~1e-5 above it. That case
+    is decided from the static shape and returns the bias broadcast."""
 
     def __init__(self, features: int, num_groups: int = 32):
         super().__init__()
         self.gn = nn.GroupNorm(num_groups, features, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if math.prod(x.shape[1:]) == self.gn.num_groups:
+            bias = self.gn.bias.to(x.dtype)
+            return bias.reshape(1, -1, *([1] * (x.dim() - 2))).expand_as(x)
         return F.group_norm(x.float(), self.gn.num_groups, self.gn.weight,
                             self.gn.bias, self.gn.eps).to(x.dtype)
 

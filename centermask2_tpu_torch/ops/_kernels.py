@@ -38,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": []}
 
 MAX_NMS_N = 8192
+MAX_ROI_SAMPLES = 64  # kMaxSamples in csrc/roi_align.cu: o * s per axis
 
 nms_launches = 0
 roi_align_launches = 0
@@ -172,7 +173,11 @@ def nms_keep_sorted(sboxes: torch.Tensor, svalid: torch.Tensor,
     if sboxes.data_ptr() % 16:
         raise ValueError("nms_keep_sorted: boxes must be 16-byte aligned")
     keep = torch.empty((B, n), dtype=torch.bool, device=dev)
-    mask = torch.empty((B, n, n // 64), dtype=torch.int64, device=dev)
+    # overlap bitmask scratch: rows of n/64 words rounded up to even (the
+    # scan stages them in 16-byte copies)
+    words = n // 64
+    mask = torch.empty((B, n, words + words % 2), dtype=torch.int64,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib("nms").cm2_nms_keep_sorted(
         sboxes.data_ptr(), svalid.data_ptr(), keep.data_ptr(),
@@ -192,6 +197,10 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     """Kernel 2 (csrc/roi_align.cu): multilevel ROIAlign of NCHW levels
     (N, C, Hl, Wl), f32 or bf16, -> (R, C, o, o) in the features' dtype."""
     global roi_align_launches
+    if output_size * sampling_ratio > MAX_ROI_SAMPLES:
+        raise ValueError(f"roi_align: output_size * sampling_ratio = "
+                         f"{output_size * sampling_ratio} exceeds the "
+                         f"kernel's {MAX_ROI_SAMPLES} samples per axis")
     feats = list(features)
     dev = _require_cuda("roi_align", *feats, boxes, batch_indices, levels)
     dt = feats[0].dtype
@@ -212,6 +221,8 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                          "ratio > 0 are required")
     L = len(feats)
     out = torch.empty((R, C, output_size, output_size), dtype=dt, device=dev)
+    if R == 0:  # nothing to launch
+        return out
     ptrs = (ctypes.c_void_p * L)(*[f.data_ptr() for f in feats])
     hs = (ctypes.c_int * L)(*[f.shape[2] for f in feats])
     ws = (ctypes.c_int * L)(*[f.shape[3] for f in feats])

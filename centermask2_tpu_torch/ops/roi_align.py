@@ -104,25 +104,29 @@ def multilevel_roi_align_plain(
     R = boxes.shape[0]
     dev = boxes.device
     o, s = output_size, sampling_ratio
-    heights = torch.tensor([f.shape[2] for f in features], dtype=torch.float32,
-                           device=dev)
-    widths = torch.tensor([f.shape[3] for f in features], dtype=torch.float32,
-                          device=dev)
-    scales_t = torch.tensor(list(scales), dtype=torch.float32, device=dev)
-    sizes = [f.shape[0] * f.shape[2] * f.shape[3] for f in features]
-    bases = torch.tensor([sum(sizes[:i]) for i in range(L)], dtype=torch.long,
-                         device=dev)
     # per-level border clamp happens in each level's own geometry, then
     # all levels share one (S, 4C) f32 row table
     flat = torch.cat([_blockify(f.permute(0, 2, 3, 1).float()).reshape(-1, 4 * C)
                       for f in features], dim=0)
 
     lv = torch.clamp(levels.long(), 0, L - 1)
-    scale_r = scales_t[lv]
-    h_r = heights[lv]
-    w_r = widths[lv]
+
+    def per_roi(values, dtype):
+        """values[lv] built on the ROIs' device from Python constants (a
+        host-to-device table copy would block the stream)."""
+        out = torch.full((R,), values[0], dtype=dtype, device=dev)
+        for i in range(1, L):
+            out = out.masked_fill(lv == i, values[i])
+        return out
+
+    sizes = [f.shape[0] * f.shape[2] * f.shape[3] for f in features]
+    scale_r = per_roi([float(s) for s in scales], torch.float32)
+    h_r = per_roi([float(f.shape[2]) for f in features], torch.float32)
+    w_r = per_roi([float(f.shape[3]) for f in features], torch.float32)
+    plane_r = per_roi([f.shape[2] * f.shape[3] for f in features], torch.long)
     bidx = torch.clamp(batch_indices.long(), 0, N - 1)
-    base_r = bases[lv] + bidx * (h_r * w_r).long()
+    base_r = per_roi([sum(sizes[:i]) for i in range(L)], torch.long) \
+        + bidx * plane_r
 
     ys, xs = _axis_coords(boxes.float(), scale_r, o, s, aligned)
     P = (o * s) ** 2
@@ -135,8 +139,14 @@ def multilevel_roi_align_plain(
     for t in range(4):
         part = g[..., t * C:(t + 1) * C] * w[:, :, t, None]
         vals = part if vals is None else vals + part
-    # (R, P, C) with P ordered (ph, iy, pw, ix) -> s x s bin means
-    out = vals.reshape(R, o, s, o, s, C).sum(dim=(2, 4)) * (1.0 / (s * s))
+    # (R, P, C) with P ordered (ph, iy, pw, ix) -> s x s bin means, the
+    # samples added one by one in (iy, ix) order, as kernel 2 adds them (a
+    # reduction over both axes sums in another order on CUDA than on CPU)
+    vals = vals.reshape(R, o, s, o, s, C)
+    total = vals[:, :, 0, :, 0]
+    for i in range(1, s * s):
+        total = total + vals[:, :, i // s, :, i % s]
+    out = total * (1.0 / (s * s))
     return out.permute(0, 3, 1, 2).to(features[0].dtype).contiguous()
 
 

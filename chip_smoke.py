@@ -14,10 +14,15 @@ times the kernels and the end-to-end latency. Phases, in order:
             kernel's registers/spills from ``-Xptxas=-v``.
 3. kernels: NMS keep sets bit-equal to the plain version at N = 1024,
             2048, 8192 (invalid rows, duplicate and zero-area boxes,
-            score ties, class offsets, a batch of 2); ROIAlign on the
-            P3-P5 shapes of 800x1088 within tolerance in f32 and bf16, on
-            one image and on a batch of 2; median times of kernel and
-            plain version on these synthetic inputs.
+            score ties, class offsets, a batch of 2), and at N = 1024 and
+            8192 on disjoint boxes (all kept), a suppression chain across
+            every 64-box word, and an all-invalid image; ROIAlign on the
+            P3-P5 shapes of 800x1088 within tolerance in f32 and bf16 for
+            (o, s) = (14, 2), (7, 2), (14, 1), (5, 3), C = 256 and 200,
+            one image and a batch of 2, and ROIs all on P5 (a difference
+            names its worst element); median times of kernel and plain
+            version on synthetic inputs (NMS also at N = 2048 and 8192
+            with B = 2; ROIAlign also on one tiny box repeated).
 4. serve:   4 requests (3 at 800x1088, 1 at 1344x1344) in bf16 through
             ``build_centermask`` + ``inference``, with the launch counts
             reset before and read after (each kernel once per request),
@@ -25,12 +30,14 @@ times the kernels and the end-to-end latency. Phases, in order:
             path), and an f32 request through the kernels and through the
             plain versions (swapped in for the kernels), compared slot by
             slot.
-5. time:    each kernel and its plain version on the inputs captured
-            from a served bf16 800x1088 request (the times of the
-            ``kernels`` line); per-image latency at B = 1, 800x1088 and
-            1344x1344, bf16 and f32, over timed windows of a few seconds,
-            twice, with host enqueue and CPU time beside the device
-            events; a profiler breakdown of one bf16 800x1088 request.
+5. time:    each kernel against its plain version on the inputs
+            captured from a served bf16 800x1088 request, then both timed
+            there (the times of the ``kernels`` line), and the profiler's
+            device time per CUDA kernel of each; per-image latency at
+            B = 1, 800x1088 and 1344x1344, bf16 and f32, over timed
+            windows of a few seconds, twice, with host enqueue and CPU
+            time beside the device events; a profiler breakdown of one
+            bf16 800x1088 request.
 6. result:  a ``{"kernels": [...]}`` line, then the last line
             ``{"ok": true, "device": {...}}``.
 
@@ -82,6 +89,8 @@ MIN_TIMED = 10
 PASSES = 2
 
 NMS_SIZES = (1024, 2048, 8192)
+# sizes of the hard NMS cases (8192: the scan's dynamic shared memory)
+NMS_SPECIAL_SIZES = (1024, 8192)
 # (seed, H, W) of the served requests; the first is also the f32 check
 REQUESTS = ((100, 800, 1088), (101, 800, 1088), (102, 800, 1088),
             (103, 1344, 1344))
@@ -239,6 +248,59 @@ def nms_row(sboxes, svalid, thr: float, what: str) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def sort_for_nms(boxes, scores, classes, valid):
+    """Class-offset boxes sorted by descending score, as ``batched_nms``
+    hands them to the greedy core: (B, N, 4) f32 and (B, N) bool."""
+    B, n = scores.shape
+    max_coord = torch.where(valid[..., None], boxes, 0.0).amax(dim=(1, 2))
+    shifted = boxes + (classes.float() * (max_coord[:, None] + 1.0))[..., None]
+    order = torch.sort(torch.where(valid, scores, -torch.inf), dim=1,
+                       descending=True, stable=True).indices
+    sboxes = torch.gather(shifted, 1, order[..., None].expand(B, n, 4))
+    return sboxes.contiguous(), torch.gather(valid, 1, order).contiguous()
+
+
+def nms_special_inputs(n: int, dev) -> dict:
+    """Sorted (B = 2, N) inputs of the kernel's hard cases: disjoint boxes
+    (every box kept: the most propagation work), a chain in which box i
+    suppresses only i+1 (IoU 2/3 with i+1, 3/7 with i+2) across every
+    64-box word, and an all-invalid image beside a valid one."""
+    idx = np.arange(n)
+    side = int(np.ceil(np.sqrt(n)))
+    xy = np.stack([idx % side, idx // side], 1) * 20.0
+    grid = np.concatenate([xy, xy + 10.0], 1)
+    x = idx * 2.0
+    chain = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], 1)
+    gaps = np.ones(n, bool)
+    gaps[np.random.RandomState(n).choice(n, n // 32, replace=False)] = False
+    ones, none = np.ones(n, bool), np.zeros(n, bool)
+    cases = {"all kept (disjoint boxes)": ((grid, grid[::-1]), (ones, ones)),
+             "chain across words": ((chain, chain), (ones, gaps)),
+             "image 0 all invalid": ((grid, chain), (none, ones))}
+    return {name: (torch.from_numpy(np.stack(b).astype(np.float32)).to(dev),
+                   torch.from_numpy(np.stack(v)).to(dev))
+            for name, (b, v) in cases.items()}
+
+
+def nms_case(sboxes, svalid, thr: float, what: str) -> int:
+    """Kernel 1 and its plain version on sorted boxes: raises unless the
+    keep sets are bit-equal. Returns the count of differing rows (0)."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
+
+    kk = _kernels.nms_keep_sorted(sboxes, svalid, thr)
+    kp = greedy_keep_sorted_plain(sboxes, svalid, thr)
+    torch.cuda.synchronize()
+    diff = int((kk != kp).sum())
+    kept = kk.sum(dim=1).tolist()
+    if diff:
+        raise AssertionError(f"NMS {what}: kernel keeps {kept}, plain "
+                             f"{kp.sum(dim=1).tolist()}, {diff} rows differ")
+    B, n = svalid.shape
+    log(f"  nms {what}: N={n} B={B}, keep sets bit-equal ({kept} kept)")
+    return diff
+
+
 def check_nms(dev) -> int:
     """Keep sets of kernel and plain version, bit-equal in every case.
     Returns the largest count of differing keep rows over all cases."""
@@ -270,30 +332,38 @@ def check_nms(dev) -> int:
                     f"{int(kp.sum())}, {diff} rows differ")
             log(f"  nms n={n} B=2 {name}: keep sets bit-equal "
                 f"({int(kk[0].sum())}, {int(kk[1].sum())} kept)")
+        if n != 1024:  # batched synthetic timing, N > the main path's
+            nms_row(*sort_for_nms(boxes, scores, classes, valid), thr,
+                    "synthetic clustered boxes")
+    for n in NMS_SPECIAL_SIZES:
+        for name, (sboxes, svalid) in nms_special_inputs(n, dev).items():
+            worst = max(worst, nms_case(sboxes, svalid, thr, name))
 
     # synthetic clustered boxes at the main path's shape: 1000 candidates
     # padded to 1024, one image, class-offset boxes (the served request's
-    # own input is timed in [time])
+    # own input is checked and timed in [time])
     boxes, scores, classes, valid = (torch.from_numpy(a).to(dev)[None]
                                      for a in nms_inputs(rng, 1024))
-    valid = valid.bool()
-    max_coord = torch.where(valid[..., None], boxes, 0.0).amax()
-    shifted = boxes + (classes.float() * (max_coord + 1.0))[..., None]
-    order = torch.sort(torch.where(valid, scores, -torch.inf), dim=1,
-                       descending=True, stable=True).indices
-    sboxes = torch.gather(shifted, 1, order[..., None].expand(1, 1024, 4))
-    svalid = torch.gather(valid, 1, order).contiguous()
-    nms_row(sboxes.contiguous(), svalid, thr, "synthetic clustered boxes")
+    sboxes, svalid = sort_for_nms(boxes, scores, classes, valid.bool())
+    nms_row(sboxes, svalid, thr, "synthetic clustered boxes")
     return worst
 
 
 def roi_inputs(rng: np.random.RandomState, H: int, W: int, R: int,
-               C: int, B: int, dev):
+               C: int, B: int, dev, large: bool = False):
+    """P3-P5 features of an H x W canvas and R boxes, some crossing or
+    outside the borders, zero-area and large; with ``large`` every box
+    covers at least 0.56 of the canvas, which puts them all on P5."""
     shapes = [(H // s, W // s) for s in (8, 16, 32)]
     feats = [torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).to(dev)
              for h, w in shapes]
     xy = rng.rand(R, 2) * [W, H]
     wh = 4 + rng.rand(R, 2) * [W / 2, H / 2]
+    if large:
+        xy = [W / 2, H / 2] + (rng.rand(R, 2) - 0.5) * [W / 4, H / 4]
+        wh = (0.75 + 0.5 * rng.rand(R, 2)) * [W, H]
+        boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1)
+        return feats, torch.from_numpy(boxes.astype(np.float32)).to(dev)
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
     boxes[:5, 0] = -30.0  # crossing the left border
     boxes[5:10, 3] = H + 40.0  # crossing the bottom border
@@ -360,54 +430,88 @@ def roi_row(feats, boxes, bidx, levels, scales, o: int, s: int,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def check_roi_align(dev) -> float:
-    """Kernel 2 against its plain version in f32 and bf16, on one image
-    and on a batch of 2 with ROIs of both images mixed. Returns the
-    largest abs error."""
-    from centermask2_tpu_torch.ops import _kernels, assign_boxes_by_ratio
+def roi_case(feats, boxes, bidx, levels, scales, o: int, s: int,
+             what: str) -> float:
+    """Kernel 2 against its plain version on one input: f32 within
+    ROI_F32_ATOL, bf16 within ROI_BF16_RTOL * |plain| + ROI_BF16_ATOL.
+    Raises outside the tolerance; returns the max abs error."""
+    from centermask2_tpu_torch.ops import _kernels
     from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align_plain
+
+    args = (feats, boxes, bidx, levels, scales, o, s, True)
+    k = _kernels.roi_align(*args)
+    p = multilevel_roi_align_plain(*args)
+    torch.cuda.synchronize()
+    R, C = boxes.shape[0], feats[0].shape[1]
+    if k.shape != (R, C, o, o) or k.dtype != feats[0].dtype:
+        raise AssertionError(f"roi_align {what}: {k.shape} {k.dtype}")
+    d = (k.float() - p.float()).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    if feats[0].dtype == torch.float32:
+        ok, tol = err <= ROI_F32_ATOL, f"atol {ROI_F32_ATOL}"
+    else:
+        ok = bool((d <= ROI_BF16_RTOL * p.float().abs()
+                   + ROI_BF16_ATOL).all())
+        tol = f"|d| <= 2^-7*|plain| + {ROI_BF16_ATOL}"
+    where = ""
+    if err > 0:  # the worst element: ROI, channel, bin, values, box, level
+        i = np.unravel_index(int(d.argmax()), tuple(d.shape))
+        where = (f"; worst at (r, c, ph, pw) {tuple(int(x) for x in i)}: "
+                 f"kernel {float(k[i]):.9g} plain {float(p[i]):.9g}, box "
+                 f"{boxes[i[0]].tolist()} level {int(levels[i[0]])}, "
+                 f"{int((d > 0).sum())} values differ")
+    if not ok or not torch.isfinite(k).all():
+        raise AssertionError(f"roi_align {what}: max abs err {err} outside "
+                             f"{tol}{where}")
+    log(f"  roi_align {what}: {str(feats[0].dtype)[6:]} R={R} C={C} o={o} "
+        f"s={s}, images {sorted(set(bidx.tolist()))}, levels "
+        f"{sorted(set(levels.tolist()))}: max abs err {err:.3e} "
+        f"(tolerance {tol}){where}")
+    return err
+
+
+# (B, C, o, s, large) of the ROIAlign checks on P3-P5 of 800x1088: the
+# main path's (1, 256, 14, 2) first; odd o*o (7, 5) takes the bf16 scalar
+# stores, C = 200 a ragged channel group, ``large`` puts every ROI on P5
+ROI_CASES = ((1, 256, 14, 2, False), (2, 256, 14, 2, False),
+             (2, 200, 7, 2, False), (2, 200, 14, 1, False),
+             (2, 256, 5, 3, False), (2, 256, 14, 2, True))
+
+
+def check_roi_align(dev) -> float:
+    """Kernel 2 against its plain version in f32 and bf16 over
+    ``ROI_CASES``, with ROIs of both images mixed at B = 2. Returns the
+    largest abs error."""
+    from centermask2_tpu_torch.ops import assign_boxes_by_ratio
     from centermask2_tpu_torch.structures import boxes as box_ops
 
-    H, W, R, C, o, s = 800, 1088, 50, 256, 14, 2
+    H, W, R = 800, 1088, 50
     scales = [1 / 8, 1 / 16, 1 / 32]
     rng = np.random.RandomState(1)
     worst = 0.0
-    for B in (1, 2):
-        feats32, boxes = roi_inputs(rng, H, W, R, C, B, dev)
+    for B, C, o, s, large in ROI_CASES:
+        feats32, boxes = roi_inputs(rng, H, W, R, C, B, dev, large)
         levels = assign_boxes_by_ratio(
             box_ops.area(boxes), torch.full((R,), float(H * W), device=dev),
             3, 5)
         bidx = (torch.arange(R, device=dev) % B).to(torch.int32)
-        for name, feats in (("f32", feats32),
-                            ("bf16", [f.bfloat16() for f in feats32])):
-            k = _kernels.roi_align(feats, boxes, bidx, levels, scales, o, s,
-                                   True)
-            p = multilevel_roi_align_plain(feats, boxes, bidx, levels, scales,
-                                           o, s, True)
-            torch.cuda.synchronize()
-            if k.shape != (R, C, o, o) or k.dtype != feats[0].dtype:
-                raise AssertionError(f"roi_align {name}: {k.shape} {k.dtype}")
-            d = (k.float() - p.float()).abs()
-            err = float(d.max())
-            if name == "f32":
-                ok, tol = err <= ROI_F32_ATOL, f"atol {ROI_F32_ATOL}"
-            else:
-                ok = bool((d <= ROI_BF16_RTOL * p.float().abs()
-                           + ROI_BF16_ATOL).all())
-                tol = f"|d| <= 2^-7*|plain| + {ROI_BF16_ATOL}"
-            if not ok or not torch.isfinite(k).all():
-                raise AssertionError(f"roi_align {name} B={B}: max abs err "
-                                     f"{err} outside {tol}")
-            worst = max(worst, err)
-            log(f"  roi_align {name} B={B} (ROIs of images "
-                f"{sorted(set(bidx.tolist()))}) R={R} C={C} P3-P5 of "
-                f"{H}x{W}: max abs err {err:.3e} (tolerance {tol}), levels "
-                f"used {sorted(set(levels.tolist()))}")
-        if B == 1:  # synthetic input at the main path's shapes
+        what = "large ROIs" if large else "synthetic boxes"
+        for feats in (feats32, [f.bfloat16() for f in feats32]):
+            worst = max(worst, roi_case(feats, boxes, bidx, levels, scales,
+                                        o, s, what))
+        if (B, C, o, s, large) == ROI_CASES[0]:  # the main path's shapes
             roi_row([f.bfloat16() for f in feats32], boxes, bidx, levels,
                     scales, o, s, True, "synthetic boxes")
             roi_row(feats32, boxes, bidx, levels, scales, o, s, True,
                     "synthetic boxes")
+            # the same gathers on a few cache lines: one 32x30 box, 50 times
+            tiny = torch.tensor([[400.0, 300.0, 432.0, 330.0]] * R,
+                                device=dev)
+            roi_row([f.bfloat16() for f in feats32], tiny, bidx,
+                    assign_boxes_by_ratio(
+                        box_ops.area(tiny),
+                        torch.full((R,), float(H * W), device=dev), 3, 5),
+                    scales, o, s, True, "one tiny box 50 times")
     return worst
 
 
@@ -532,6 +636,32 @@ def capture_kernel_inputs(model, img) -> dict:
     if set(seen) != {"nms", "roi_align"}:
         raise AssertionError(f"request reached only {sorted(seen)}")
     return seen
+
+
+def profile_kernels(seen) -> None:
+    """Device time per CUDA kernel of each port kernel's launch on the
+    served request's inputs (NMS is two: the mask and the scan)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from centermask2_tpu_torch.ops import _kernels
+
+    for name, fn in (("nms", _kernels.nms_keep_sorted),
+                     ("roi_align", _kernels.roi_align)):
+        fn(*seen[name])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn(*seen[name])
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0]
+        if not evs:
+            log(f"  profiler, {name}: no device time recorded (not measured)")
+        for e in evs:
+            kernel = e.key.replace("(anonymous namespace)::", "")
+            log(f"  profiler, {name} on the served input: "
+                f"{e.device_time_total / e.count:.3f} us per launch of "
+                f"{kernel.split('(')[0][-40:]} (x{e.count})")
 
 
 def gpu_clocks() -> str:
@@ -693,8 +823,12 @@ def main() -> int:
     log("[time] each kernel on the inputs of a served bf16 "
         f"{REQUESTS[0][1]}x{REQUESTS[0][2]} request ({card})")
     seen = capture_kernel_inputs(models["bfloat16"], images[0])
+    nms_err = max(nms_err, nms_case(*seen["nms"], "served request"))
+    roi_args = seen["roi_align"]
+    roi_err = max(roi_err, roi_case(*roi_args[:7], "served request"))
     nms = nms_row(*seen["nms"], "served request")
-    roi = roi_row(*seen["roi_align"], "served request")
+    roi = roi_row(*roi_args, "served request")
+    profile_kernels(seen)
     nms["max_abs_err"], roi["max_abs_err"] = nms_err, roi_err
     del seen
 

@@ -84,6 +84,66 @@ def test_group_norm():
     np.testing.assert_allclose(got_t, got_j, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+def test_group_norm_one_value_per_group(batch):
+    """32 channels in 32 groups on a 1x1 map: each group is one value,
+    which JAX normalizes to exactly the bias (tolerance 0)."""
+    rng = np.random.RandomState(10 + batch)
+    x = rng.randn(batch, 32, 1, 1).astype(np.float32)
+    params = {"gn": {"scale": rng.randn(32).astype(np.float32),
+                     "bias": rng.randn(32).astype(np.float32)}}
+    got_j, got_t = run_both(J.GroupNorm(32), T.GroupNorm(32), params, x)
+    np.testing.assert_array_equal(got_t, got_j)
+    np.testing.assert_array_equal(
+        got_t, np.broadcast_to(params["gn"]["bias"][None, :, None, None],
+                               x.shape))
+
+
+def test_fpn_width_32_with_1x1_p7_matches_jax():
+    """FPN at width 32 and the FCOS head's GN towers over all five
+    levels of a 64x64 canvas, whose P6 and P7 are 1x1 (one value per GN
+    group there). Tolerance 1e-4: f32 convolutions summed in other
+    orders, through nine conv/GN layers."""
+    from centermask2_tpu.models.backbones.fpn import FPN as JaxFPN
+    from centermask2_tpu.models.fcos.head import FCOSHead as JaxHead
+    from centermask2_tpu_torch.models.backbones.fpn import FPN
+    from centermask2_tpu_torch.models.fcos.head import FCOSHead
+
+    rng = np.random.RandomState(11)
+    chans, strides = (16, 24, 40), (8, 16, 32)
+    feats = [rng.randn(1, c, 64 // s, 64 // s).astype(np.float32)
+             for c, s in zip(chans, strides)]
+    jfpn = JaxFPN(in_strides=strides, out_channels=32, dtype=jnp.float32)
+    jhead = JaxHead(num_classes=3, in_channels=32, dtype=jnp.float32)
+    jfeats = [nhwc(f) for f in feats]
+    fpn_params = jax.tree.map(np.asarray, jfpn.init(
+        jax.random.PRNGKey(0), jfeats)["params"])
+    levels = jfpn.apply({"params": fpn_params}, jfeats)
+    jlevels = [levels[f"p{i}"] for i in range(3, 8)]
+    assert jlevels[-1].shape[1:3] == (1, 1)
+    head_params = jax.tree.map(np.asarray, jhead.init(
+        jax.random.PRNGKey(1), jlevels)["params"])
+
+    def perturb(p):  # move GN scale and every bias off its init
+        return jax.tree.map(
+            lambda v: (v + 0.3 * rng.randn(*v.shape)).astype(np.float32), p)
+
+    head_params = perturb(head_params)
+    want = jhead.apply({"params": head_params}, jlevels)
+
+    fpn = FPN(chans, strides, out_channels=32)
+    head = FCOSHead(num_classes=3, in_channels=32)
+    load_jax_params(fpn, fpn_params)
+    load_jax_params(head, head_params)
+    with torch.no_grad():
+        out = fpn([torch.from_numpy(f) for f in feats])
+        got = head([out[f"p{i}"] for i in range(3, 8)])
+    for got_l, want_l in zip(got, want):
+        for g, w in zip(got_l, want_l):
+            np.testing.assert_allclose(g.numpy(), nchw(w), rtol=1e-4,
+                                       atol=1e-4)
+
+
 def test_group_norm_keeps_bf16_activations():
     x = torch.randn(1, 32, 4, 4).bfloat16()
     assert T.GroupNorm(32)(x).dtype == torch.bfloat16

@@ -6,7 +6,9 @@ the Pallas kernel ``nms_pallas.greedy_keep_sorted`` run in interpret
 mode: same f32 IoU arithmetic, same stable score order, exact greedy.
 Cases mirror tests/test_ops.py (across tiles, sparse, invalid rows,
 batched) and tests/test_tpu_nms.py (n = 500/1000/2000), plus ties,
-duplicates and zero-area boxes (union 0).
+duplicates, zero-area boxes (union 0), disjoint boxes that are all kept,
+and a suppression chain (box i suppresses only i+1) across every 64-box
+word: the cases chip_smoke.py holds the CUDA kernel to this oracle on.
 """
 
 import numpy as np
@@ -28,6 +30,14 @@ def make_case(kind: str, n: int, seed: int):
     if kind == "sparse":
         boxes = rng.rand(n, 4).astype(np.float32) * 400
         boxes[:, 2:] = boxes[:, :2] + 4 + boxes[:, 2:] * 0.05
+    elif kind == "all_kept":  # disjoint boxes on a grid: nothing suppressed
+        side = int(np.ceil(np.sqrt(n)))
+        xy = np.stack([np.arange(n) % side, np.arange(n) // side], 1) * 20.0
+        boxes = np.concatenate([xy, xy + 10.0], 1).astype(np.float32)
+    elif kind == "chain":  # box i overlaps i+1 (IoU 2/3) but not i+2 (3/7)
+        x = np.arange(n, dtype=np.float32) * 2.0
+        boxes = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)],
+                         1).astype(np.float32)
     else:  # clustered: long suppression chains across tiles
         obj = rng.rand(40, 2) * 1000.0
         pick = rng.randint(0, 40, n)
@@ -40,6 +50,8 @@ def make_case(kind: str, n: int, seed: int):
     if kind == "invalid":
         valid = rng.rand(n) > 0.3
         scores[~valid] = 2.0  # invalid rows must lose even with top scores
+    if kind == "chain":  # sorted order is index order: the chain crosses
+        scores = np.linspace(1.0, 0.1, n).astype(np.float32)  # every word
     if kind == "ties":
         scores = (np.round(scores * 6) / 6).astype(np.float32)
     if kind == "degenerate":
@@ -75,7 +87,7 @@ def port_keep(boxes, scores, valid, thr):
 
 @pytest.mark.parametrize("n", [500, 1000, 2000])
 @pytest.mark.parametrize("kind", ["clustered", "sparse", "invalid", "ties",
-                                  "degenerate"])
+                                  "degenerate", "all_kept", "chain"])
 def test_keep_mask_matches_jax(kind, n):
     boxes, scores, _, valid = make_case(kind, n, seed=n)
     thr = 0.6
@@ -85,6 +97,10 @@ def test_keep_mask_matches_jax(kind, n):
                                         jnp.asarray(valid), thr))
     np.testing.assert_array_equal(got, xla)
     assert got.sum() > 0 and not got[~valid].any()
+    if kind == "all_kept":
+        assert got.all()
+    if kind == "chain":  # greedy keeps every other box
+        np.testing.assert_array_equal(got, np.arange(n) % 2 == 0)
 
 
 @pytest.mark.parametrize("n", [500, 1000, 2000])

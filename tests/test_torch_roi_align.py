@@ -148,3 +148,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                            torch.zeros(1, dtype=torch.int32),
                            torch.zeros(1, dtype=torch.int32), [0.125], 14, 2,
                            True)
+
+
+def test_kernel_wrapper_refuses_more_samples_than_its_tables():
+    """Kernel 2 keeps o*s samples per axis in fixed tables (64)."""
+    feats = [torch.zeros(1, 4, 8, 8)]
+    with pytest.raises(ValueError, match="samples per axis"):
+        _kernels.roi_align(feats, torch.zeros(1, 4),
+                           torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32), [0.125], 33, 2,
+                           True)
