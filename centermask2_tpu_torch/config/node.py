@@ -111,8 +111,11 @@ class CfgNode(dict):
 
 
 def _decode_value(v: Any, old: Any, full_key: str) -> Any:
-    # an empty string stays "" (yaml would read it as None)
-    if isinstance(v, str) and v.strip():
+    # a blank string becomes None, as yaml.safe_load reads it in the JAX
+    # package's copy (detectron2 itself keeps "")
+    if isinstance(v, str) and not v.strip():
+        v = None
+    elif isinstance(v, str):
         import ast
 
         try:

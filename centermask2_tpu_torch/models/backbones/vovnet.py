@@ -1,19 +1,23 @@
 """VoVNetV2 backbone (One-Shot Aggregation + eSE), NCHW (the port of
 ``centermask2_tpu/models/backbones/vovnet.py``).
 
-Plain stem of 3 convs at strides 2/1/2, OSA modules (input + k
+Stem of 3 convs at strides 2/1/2, either on the image or, with
+``s2d_input``, evaluated in space-to-depth coordinates on the host's
+factor-4 s2d input (``s2d_stem_forward``); OSA modules (input + k
 sequential 3x3 convs concatenated, 1x1 aggregate, eSE gate, identity
 residual on non-first blocks), and a ceil-mode 3x3/s2 max-pool opening
 stages 3-5. Only the standard-conv bodies are ported here; the
-depthwise bodies, DCN stages and the space-to-depth stem raise
-``NotImplementedError`` (ROADMAP queue 1, items 9, 11 and 12).
+depthwise bodies and DCN stages raise ``NotImplementedError`` (ROADMAP
+queue 1, items 11 and 12).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import weakref
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...layers import ConvNormAct, eSEModule, max_pool2d_ceil
@@ -53,6 +57,9 @@ STAGE_SPECS = {
 FEATURE_STRIDES = {"stem": 4, "stage2": 4, "stage3": 8, "stage4": 16,
                    "stage5": 32}
 
+# the depthwise bodies of the JAX STAGE_SPECS: the s2d stem refuses them
+DW_BODIES = ("V-19-slim-dw-eSE", "V-19-dw-eSE")
+
 
 def _spec(body: str) -> Dict:
     if body not in STAGE_SPECS:
@@ -68,6 +75,141 @@ def feature_channels(body: str) -> Dict[str, int]:
     for i, c in enumerate(spec["stage_out_ch"]):
         out[f"stage{i + 2}"] = c
     return out
+
+
+def _embed_s2d_kernel(w: torch.Tensor, P: int, Q: int) -> torch.Tensor:
+    """Zero-embed a (O, C, 3, 3) stride-1/pad-1 kernel as the (O, 4C, 2, 2)
+    kernel computing output phase (P, Q) on a 2x2-s2d input (JAX
+    ``vovnet.py:164-188``).
+
+    Output row 2i+P taps input rows 2i+P+dy-1 (dy in 0..2). Writing that
+    row as 2(i+a)+alpha, the window offsets a span {-1,0} for P=0 and
+    {0,1} for P=1; the kernel entry at window position a', input phase
+    (alpha, beta) is w[dy, dx] with dy = 2(a'+amin)+alpha-P+1 (zero when
+    dy/dx falls outside 0..2). Channel blocks are (alpha, beta)-major,
+    the (p, q) row-major phase packing stem_1 emits."""
+    O, C, kh, kw = w.shape
+    K = w.new_zeros((O, 4 * C, 2, 2))
+    amin = -1 if P == 0 else 0
+    bmin = -1 if Q == 0 else 0
+    for ap in range(2):
+        for bp in range(2):
+            for alpha in range(2):
+                for beta in range(2):
+                    dy = 2 * (ap + amin) + alpha - P + 1
+                    dx = 2 * (bp + bmin) + beta - Q + 1
+                    if 0 <= dy < kh and 0 <= dx < kw:
+                        blk = (alpha * 2 + beta) * C
+                        K[:, blk:blk + C, ap, bp] = w[:, :, dy, dx]
+    return K
+
+
+def _embed_stem1_nat(w1: torch.Tensor) -> torch.Tensor:
+    """Zero-embed the stem_1 (O, C, 3, 3) conv/s2/pad1 kernel as the
+    (4O, 16C, 2, 2) kernel computing all four output phases of y1 in one
+    2x2/VALID conv over the natural-order factor-4 s2d input (JAX
+    ``vovnet.py:191-216``; channel rho*4C + kap*C + c of the input holds
+    image pixel (4i + rho - 2, 4j + kap - 2)).
+
+    y1[2i+p, 2j+q] = sum_{dy,dx} w1[dy, dx] * P4[4i + 2p + dy + 1, ...]
+    where P4 is the image padded by 2 on every side; the conv window
+    position a and input row-phase rho satisfy 4a + rho = 2p + dy + 1,
+    so every tap lands in a unique (window, phase) slot. Output phases
+    are packed (p, q) row-major along channels."""
+    O, C, kh, kw = w1.shape
+    K = w1.new_zeros((4 * O, 16 * C, 2, 2))
+    for p in (0, 1):
+        for q in (0, 1):
+            for dy in range(kh):
+                for dx in range(kw):
+                    a, rho = divmod(2 * p + dy + 1, 4)
+                    b, kap = divmod(2 * q + dx + 1, 4)
+                    blk = (rho * 4 + kap) * C
+                    out = (p * 2 + q) * O
+                    K[out:out + O, blk:blk + C, a, b] = w1[:, :, dy, dx]
+    return K
+
+
+class S2DStemKernels(NamedTuple):
+    """What ``s2d_stem_forward`` convolves with, in the compute dtype: the
+    zero-embedded kernels and the FrozenBN affines tiled over phases,
+    each affine a (scale, bias) pair shaped (1, C, 1, 1)."""
+
+    k1: torch.Tensor  # (4*C1, 48, 2, 2): all four phases of stem_1
+    k2: Tuple[torch.Tensor, torch.Tensor]  # (2*C2, 4*C1, 2, 3) per P
+    k3: Tuple[torch.Tensor, torch.Tensor]  # (C3, 2*C2, 2, 2) per P
+    a1: Tuple[torch.Tensor, torch.Tensor]
+    a2: Tuple[torch.Tensor, torch.Tensor]
+    a3: Tuple[torch.Tensor, torch.Tensor]
+
+
+StemParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
+                     dtype: torch.dtype) -> S2DStemKernels:
+    """Build the s2d stem's kernels from the logical stem parameters,
+    each a (weight (O, I, 3, 3), frozen_scale, frozen_bias) triple.
+
+    XLA folds these into constants of the JAX program; in eager PyTorch
+    they cost some eighty small launches, so ``VoVNet`` builds them once
+    per set of weights. Packing (JAX ``vovnet.py:244-254``): stem_1's
+    four phases in one conv; stem_2's phases paired over Q in (2, 3)
+    kernels with each phase's 2x2 kernel at column offset Q; stem_3's
+    phase-(0,0) kernel split channel-wise over the two stem_2 pairs."""
+    (w1, s1, b1), (w2, s2, b2), (w3, s3, b3) = k1, k2, k3
+    C2 = w2.shape[0]
+    pairs = []
+    for P in (0, 1):
+        kp = w2.new_zeros((2 * C2, 4 * w1.shape[0], 2, 3))
+        for Q in (0, 1):
+            kp[Q * C2:(Q + 1) * C2, :, :, Q:Q + 2] = _embed_s2d_kernel(w2, P, Q)
+        pairs.append(kp.to(dtype))
+    k3e = _embed_s2d_kernel(w3, 0, 0)
+
+    def affine(s, b, rep):
+        return (s.repeat(rep).to(dtype)[None, :, None, None],
+                b.repeat(rep).to(dtype)[None, :, None, None])
+
+    return S2DStemKernels(
+        k1=_embed_stem1_nat(w1).to(dtype), k2=tuple(pairs),
+        k3=tuple(k3e[:, 2 * P * C2:2 * (P + 1) * C2].to(dtype).contiguous()
+                 for P in (0, 1)),
+        a1=affine(s1, b1, 4), a2=affine(s2, b2, 2), a3=affine(s3, b3, 1))
+
+
+def s2d_stem_forward(xd2: torch.Tensor,
+                     kernels: S2DStemKernels) -> torch.Tensor:
+    """The whole VoVNet stem evaluated in space-to-depth coordinates (JAX
+    ``vovnet.py:225-296``).
+
+    xd2: (B, 48, Hd, Wd), the NCHW view of the host's factor-4 s2d input
+    (``data/preprocess.py::stem_space_to_depth``). Every stem tensor lives
+    at stride-4 spatial size with 48-256 channels and all three convs
+    are 2x2 VALID convs with zero-embedded kernels: the same sums as the
+    plain stem up to rounding order. Returns the stem output
+    (B, C3, Hd-1, Wd-1)."""
+    kn = kernels
+
+    def affine_relu(y, a):
+        return F.relu(y * a[0] + a[1])
+
+    # stem_1: the 4 output phases of y1, packed (p, q) row-major
+    y1d = affine_relu(F.conv2d(xd2.to(kn.k1.dtype), kn.k1), kn.a1)
+    # stem_2: conv3x3/s1/p1 in s2d space, 2 paired phase convs over the
+    # 1-padded y1d (zero rows/cols of y1d are exactly y1's conv padding)
+    y1p = F.pad(y1d, (1, 1, 1, 1))
+    h = y1d.shape[2]
+    y2_pairs = [affine_relu(F.conv2d(y1p[:, :, P:P + h + 1], kn.k2[P]),
+                            kn.a2) for P in (0, 1)]
+    # stem_3: conv3x3/s2/p1, whose stride-2 output lands on the s2d grid:
+    # one phase-(0,0) conv as two channel-half convs over the top/left
+    # zero-padded stem_2 pairs, summed
+    y3 = None
+    for P in (0, 1):
+        part = F.conv2d(F.pad(y2_pairs[P], (1, 0, 1, 0)), kn.k3[P])
+        y3 = part if y3 is None else y3 + part
+    return affine_relu(y3, kn.a3)
 
 
 class OSAModule(nn.Module):
@@ -104,16 +246,32 @@ class OSAModule(nn.Module):
 
 
 class VoVNet(nn.Module):
-    """VoVNetV2 trunk with the plain stem. Returns a dict of the requested
-    out_features."""
+    """VoVNetV2 trunk. Returns a dict of the requested out_features.
+
+    ``s2d_input``: the input is the host's factor-4 s2d layout
+    (B, 16 * in_channels, H/4+1, W/4+1) and the stem runs in s2d
+    coordinates (``s2d_stem_forward``); standard-conv bodies with
+    FrozenBN only, as in the JAX package. The parameters stay the
+    logical ``stem_{1,2,3}`` 3x3 kernels, so checkpoints load unchanged;
+    the embedded kernels are built from them at the first forward and
+    again whenever a stem parameter was replaced, moved or written in
+    place (its tensor, storage or version counter changed)."""
 
     def __init__(self, body: str = "V-39-eSE",
                  out_features: Sequence[str] = ("stage2", "stage3", "stage4",
                                                 "stage5"),
                  norm: str = "FrozenBN", in_channels: int = 3,
+                 s2d_input: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if s2d_input and (body in DW_BODIES or norm != "FrozenBN"):
+            raise ValueError(
+                f"the s2d stem supports standard-conv bodies with FrozenBN "
+                f"only, got {body!r} with norm {norm!r}")
         spec = _spec(body)
+        self.s2d_input = s2d_input
+        self.dtype = dtype
+        self._s2d_cache = None
         self.out_features = tuple(out_features)
         stem = spec["stem"]
         self.stem_1 = ConvNormAct(in_channels, stem[0], strides=(2, 2),
@@ -136,8 +294,33 @@ class VoVNet(nn.Module):
                 names.append(name)
             self.blocks.append(names)
 
+    def _stem_sources(self) -> List[torch.Tensor]:
+        return [t for m in (self.stem_1, self.stem_2, self.stem_3)
+                for t in (m.conv.weight, m.norm.frozen_scale,
+                          m.norm.frozen_bias)]
+
+    def s2d_kernels(self) -> S2DStemKernels:
+        """The s2d stem's kernels for the current stem parameters, built
+        once per set of weights (see the class docstring)."""
+        srcs = self._stem_sources()
+        key = tuple((t.data_ptr(), t._version) for t in srcs)
+        c = self._s2d_cache
+        if c is None or c[1] != key or \
+                any(ref() is not t for ref, t in zip(c[0], srcs)):
+            with torch.no_grad():
+                kernels = s2d_stem_kernels(
+                    *(tuple(t.detach() for t in srcs[i:i + 3])
+                      for i in (0, 3, 6)), self.dtype)
+            self._s2d_cache = ([weakref.ref(t) for t in srcs], key, kernels)
+        return self._s2d_cache[2]
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        if self.s2d_input:
+            return s2d_stem_forward(x, self.s2d_kernels())
+        return self.stem_3(self.stem_2(self.stem_1(x)))
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem_3(self.stem_2(self.stem_1(x)))
+        x = self.stem(x)
         outputs: Dict[str, torch.Tensor] = {}
         if "stem" in self.out_features:
             outputs["stem"] = x

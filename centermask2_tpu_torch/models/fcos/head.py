@@ -24,7 +24,8 @@ class Tower(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm not in ("GN", ""):
-            raise NotImplementedError(f"FCOS tower norm {norm!r} is not ported")
+            raise NotImplementedError(f"FCOS tower norm {norm!r} is not ported "
+                                      "(ROADMAP queue 1, item 11)")
         self.num_convs = num_convs
         for i in range(num_convs):
             self.add_module(f"conv{i}", Conv2d(channels, channels, init=0.01,

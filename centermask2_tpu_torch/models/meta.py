@@ -1,23 +1,28 @@
 """CenterMask meta-architecture, inference: backbone -> FPN -> FCOS ->
 ROI heads (the port of ``centermask2_tpu/models/meta.py``).
 
-``CenterMask.inference`` takes the JAX model's input, a normalized padded
-NHWC batch (B, H, W, 3), and returns the same fixed-capacity
-``InferenceOutputs``: the six tensors of the reference's export contract
-(deploy_utils.py:117-126) plus an explicit validity mask. Inside, the
-activations are NCHW.
+``CenterMask.inference`` takes the JAX model's inputs and returns the
+same fixed-capacity ``InferenceOutputs``: the six tensors of the
+reference's export contract (deploy_utils.py:117-126) plus an explicit
+validity mask. Inside, the activations are NCHW. The inputs are
+- a normalized padded NHWC batch (B, H, W, 3), or, with ``s2d_input``
+  (TPU.S2D_STEM_INPUT), its factor-4 s2d layout (B, H/4+1, W/4+1, 48);
+- the serving form of the latter: the RAW uint8 s2d pack, normalized on
+  the device (``_normalize_u8_s2d``), possibly over a tight canvas that
+  the device zero-pads back to the deployment canvas (``_pad_to_canvas``)
+  or that the program runs at as it is (tight compute).
 
 Not ported yet, each raising ``NotImplementedError``: training (ROADMAP
-queue 1, item 13), keypoints and DCN (item 12), the ResNet and MobileNet
-backbones (item 11), and the serving input modes: s2d input, uint8 input
-and the tight-canvas pad (item 9).
+queue 1, item 13), keypoints and DCN (item 12), and the ResNet and
+MobileNet backbones (item 11).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import CfgNode
@@ -89,6 +94,8 @@ class CenterMask(nn.Module):
         mask_num_conv: int = 4,
         maskiou_conv_dim: int = 256,
         maskiou_num_conv: int = 4,
+        s2d_input: bool = False,
+        pixel_mean: Sequence[float] = (103.53, 116.28, 123.675),
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
@@ -107,9 +114,16 @@ class CenterMask(nn.Module):
             post_nms_topk=post_nms_topk_test, nms_candidates=nms_candidates,
             thresh_with_ctr=thresh_with_ctr)
         self.dtype = dtype
+        self.s2d_input = s2d_input
+        # BGR mean of the on-device normalization of uint8 inputs
+        # (MODEL.PIXEL_MEAN); not a parameter, so not in the state_dict
+        self.register_buffer("pixel_mean",
+                             torch.tensor(pixel_mean, dtype=torch.float32),
+                             persistent=False)
 
         self.backbone = VoVNet(conv_body, out_features=self.fpn_in_features,
-                               norm=backbone_norm, dtype=dtype)
+                               norm=backbone_norm, s2d_input=s2d_input,
+                               dtype=dtype)
         chans = feature_channels(conv_body)
         self.fpn = FPN([chans[f] for f in self.fpn_in_features],
                        [FEATURE_STRIDES[f] for f in self.fpn_in_features],
@@ -127,13 +141,16 @@ class CenterMask(nn.Module):
             dtype=dtype)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images: (B, H, W, 3) normalized and padded (BGR - mean)."""
-        H, W = images.shape[1], images.shape[2]
+        """images: (B, H, W, 3) normalized and padded (BGR - mean), or its
+        s2d layout (B, H/4+1, W/4+1, 48) with ``s2d_input``."""
+        H, W = self.canvas_hw(images)
         if H % 32 or W % 32:
             raise ValueError(
                 f"canvas {H}x{W} must be divisible by 32 (detectron2 "
                 "size_divisibility): the FPN top-down 2x upsample "
-                "misaligns against ceil-divided lateral shapes otherwise")
+                "misaligns against ceil-divided lateral shapes otherwise "
+                "(check TPU.FIXED_EDGE_SIZE or the tight-compute serving "
+                "canvas)")
         x = images.permute(0, 3, 1, 2).to(self.dtype).contiguous()
         bottom_up = self.backbone(x)
         return self.fpn([bottom_up[f] for f in self.fpn_in_features])
@@ -151,22 +168,96 @@ class CenterMask(nn.Module):
                             **self.decode_kwargs)
 
     def forward(self, images: torch.Tensor,
-                image_sizes: Optional[torch.Tensor] = None
+                image_sizes: Optional[torch.Tensor] = None,
+                valid_hw: Optional[torch.Tensor] = None,
+                canvas_hw: Optional[Tuple[int, int]] = None
                 ) -> InferenceOutputs:
-        return self.inference(images, image_sizes)
+        return self.inference(images, image_sizes, valid_hw, canvas_hw)
+
+    def _pad_to_canvas(self, images: torch.Tensor,
+                       canvas_hw: Optional[Tuple[int, int]]) -> torch.Tensor:
+        """Zero-pad a TIGHT s2d pack (``data/preprocess.py::
+        s2d_pack_u8_tight``) back to the deployment canvas on the device
+        (JAX ``meta.py:275-291``). Exact: a tight-canvas s2d pack equals
+        the top-left block of the full-canvas pack, and every full-pack
+        cell outside it reads only zero canvas padding. ``canvas_hw``:
+        python (H, W) of the deployment canvas."""
+        if canvas_hw is None or not self.s2d_input:
+            return images
+        Ho, Wo = canvas_hw[0] // 4 + 1, canvas_hw[1] // 4 + 1
+        dh, dw = Ho - images.shape[1], Wo - images.shape[2]
+        if dh == 0 and dw == 0:
+            return images
+        if dh < 0 or dw < 0:
+            raise ValueError(f"s2d pack {tuple(images.shape)} exceeds the "
+                             f"canvas {canvas_hw}")
+        return F.pad(images, (0, 0, 0, dw, 0, dh))
+
+    def _normalize_u8_s2d(self, images: torch.Tensor,
+                          valid_hw: Optional[torch.Tensor]) -> torch.Tensor:
+        """On-device normalization of a RAW uint8 s2d input (JAX
+        ``meta.py:293-322``): cast to f32, subtract the BGR mean, and zero
+        everything outside the true resized image (the reference
+        zero-pads the normalized canvas; the u8 padding bytes would read
+        as -mean after the subtraction). Equal to the host f32 path: the
+        u8 -> f32 cast is exact and the subtraction the same f32 op.
+        ``valid_hw``: (B, 2) int true resized (h, w); defaults to the
+        full canvas. Other dtypes pass through."""
+        if images.dtype != torch.uint8:
+            return images
+        if not self.s2d_input:
+            raise ValueError("uint8 input requires the s2d layout "
+                             "(TPU.S2D_STEM_INPUT)")
+        B, Ho, Wo, C16 = images.shape
+        C = C16 // 16
+        dev = images.device
+        # channel rho*4C + kap*C + c holds pixel (4i + rho - 2, 4j + kap - 2)
+        phase = torch.arange(4, device=dev)[None, :] - 2
+        rows = 4 * torch.arange(Ho, device=dev)[:, None] + phase  # (Ho, 4)
+        cols = 4 * torch.arange(Wo, device=dev)[:, None] + phase
+        if valid_hw is None:
+            H, W = self.canvas_hw(images)
+            rvalid = ((rows >= 0) & (rows < H))[None].expand(B, -1, -1)
+            cvalid = ((cols >= 0) & (cols < W))[None].expand(B, -1, -1)
+        else:
+            vh = valid_hw.to(dev)
+            rvalid = (rows[None] >= 0) & (rows[None] < vh[:, :1, None])
+            cvalid = (cols[None] >= 0) & (cols[None] < vh[:, 1:, None])
+        x = images.float().reshape(B, Ho, Wo, 4, 4, C)
+        mask = (rvalid[:, :, None, :, None, None]
+                & cvalid[:, None, :, None, :, None])
+        x = torch.where(mask, x - self.pixel_mean, 0.0)
+        return x.reshape(B, Ho, Wo, C16)
+
+    def canvas_hw(self, images: torch.Tensor) -> Tuple[int, int]:
+        """Padded-canvas (H, W) of an input batch, undoing the s2d layout
+        ((H/4+1, W/4+1) grid) when ``s2d_input`` is set."""
+        H, W = images.shape[1], images.shape[2]
+        if self.s2d_input:
+            H, W = (H - 1) * 4, (W - 1) * 4
+        return H, W
 
     @torch.no_grad()
     def inference(self, images: torch.Tensor,
-                  image_sizes: Optional[torch.Tensor] = None
+                  image_sizes: Optional[torch.Tensor] = None,
+                  valid_hw: Optional[torch.Tensor] = None,
+                  canvas_hw: Optional[Tuple[int, int]] = None
                   ) -> InferenceOutputs:
-        """Full inference to the output contract. ``image_sizes``: (B, 2)
-        true (h, w) per image (defaults to the padded size, the reference's
-        FakeImageList deployment contract)."""
-        if not torch.is_floating_point(images):
-            raise NotImplementedError(
-                "uint8 (s2d-packed) input is not ported yet "
-                "(ROADMAP queue 1, item 9)")
-        B, H, W = images.shape[:3]
+        """Full inference to the output contract (JAX ``meta.py:332-398``).
+
+        ``image_sizes``: (B, 2) true (h, w) per image, which sets the
+        image area of ROI level assignment; defaults to the padded canvas
+        (the reference's FakeImageList deployment contract): after the
+        pad-back, or the tight canvas itself in tight compute.
+        ``valid_hw``: (B, 2) true resized sizes, used only to normalize a
+        uint8 s2d input on the device. ``canvas_hw``: the deployment
+        canvas (H, W) a TIGHT s2d pack is zero-padded back to; without it
+        the program runs at the pack's own canvas. A uint8 input takes
+        the on-device normalization, chosen by its dtype."""
+        images = self._pad_to_canvas(images, canvas_hw)
+        B = images.shape[0]
+        H, W = self.canvas_hw(images)
+        images = self._normalize_u8_s2d(images, valid_hw)
         feats = self.features(images)
         locations, logits, reg, ctr = self._fcos_raw(feats)
         proposals = self._decode(locations, logits, reg, ctr)
@@ -212,6 +303,22 @@ class CenterMask(nn.Module):
             valid=proposals.valid,
         )
 
+    @torch.no_grad()
+    def inference_batched(self, images: torch.Tensor,
+                          image_sizes: Optional[torch.Tensor] = None,
+                          valid_hw: Optional[torch.Tensor] = None
+                          ) -> InferenceOutputs:
+        """Batched serving as one B = 1 program per image, in order (JAX
+        ``meta.py:400-434`` maps the single-image program over the batch
+        with ``lax.map``), outputs stacked. Defaults as ``inference``."""
+        def part(t, i):
+            return None if t is None else t[i:i + 1]
+
+        outs = [self.inference(images[i:i + 1], part(image_sizes, i),
+                               part(valid_hw, i))
+                for i in range(images.shape[0])]
+        return InferenceOutputs(*(torch.cat(f) for f in zip(*outs)))
+
 
 def build_centermask(cfg: CfgNode, device: DeviceLike = None,
                      seed: int = 0) -> CenterMask:
@@ -227,9 +334,6 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         raise NotImplementedError(
             f"backbone {backbone_name!r} is not ported yet (ROADMAP queue 1, "
             "item 11)")
-    if cfg.TPU.S2D_STEM_INPUT:
-        raise NotImplementedError(
-            "TPU.S2D_STEM_INPUT is not ported yet (ROADMAP queue 1, item 9)")
     if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
             "keypoints are not ported yet (ROADMAP queue 1, item 12)")
@@ -237,7 +341,8 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         raise NotImplementedError(
             "deformable convs are not ported yet (ROADMAP queue 1, item 12)")
     if cfg.TPU.APPROX_TOPK:
-        raise NotImplementedError("TPU.APPROX_TOPK has no port")
+        raise NotImplementedError(
+            "TPU.APPROX_TOPK has no port (ROADMAP queue 1, item 11)")
     fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or ("stage3", "stage4", "stage5")
     model = CenterMask(
         conv_body=cfg.MODEL.VOVNET.CONV_BODY,
@@ -280,6 +385,8 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
         maskiou_conv_dim=cfg.MODEL.ROI_MASKIOU_HEAD.CONV_DIM,
         maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV,
+        s2d_input=cfg.TPU.S2D_STEM_INPUT,
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
     )
     reset_parameters(model, torch.Generator().manual_seed(seed))

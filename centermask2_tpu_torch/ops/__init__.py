@@ -1,4 +1,5 @@
 from .nms import batched_nms, nms_keep_mask, nms_select
+from .paste_masks import paste_masks
 from .roi_align import (
     assign_boxes_by_area,
     assign_boxes_by_ratio,
@@ -7,6 +8,7 @@ from .roi_align import (
 from .select import masked_topk
 
 __all__ = [
-    "batched_nms", "nms_keep_mask", "nms_select", "assign_boxes_by_area",
-    "assign_boxes_by_ratio", "multilevel_roi_align", "masked_topk",
+    "batched_nms", "nms_keep_mask", "nms_select", "paste_masks",
+    "assign_boxes_by_area", "assign_boxes_by_ratio", "multilevel_roi_align",
+    "masked_topk",
 ]

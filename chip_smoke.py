@@ -38,7 +38,31 @@ times the kernels and the end-to-end latency. Phases, in order:
             windows of a few seconds, twice, with host enqueue and CPU
             time beside the device events; a profiler breakdown of one
             bf16 800x1088 request.
-6. result:  a ``{"kernels": [...]}`` line, then the last line
+6. serving: the serving config (``zy_model_serving.yaml``) built with the
+            parameters of ``serve``: a 1333x800 uint8 image packed tight
+            on the host, padded back and normalized on the device,
+            ``torch.equal`` to the host's f32 s2d input; the s2d stem
+            against the plain stem in f32 (worst element printed); an f32
+            request from the tight pack on 1344x1344 through the kernels
+            against the same request through the plain versions and
+            against the f32 NHWC request, slot by slot; 6 bf16 requests
+            (three images, each padded back and at its tight canvas) with
+            the launch counts read around them; one under sync-debug
+            mode; one per-level request (TPU.NMS_CANDIDATES = 5000), one
+            launch of each kernel, timed at N = 5000; each kernel held
+            against its plain version on the inputs captured from every
+            one of these requests (f32 and bf16, pad-back, the three
+            tight canvases, per-level); device ms per request as a CUDA
+            graph at each tight canvas and at 1344x1344 pad-back, host
+            pack ms and bytes per request.
+7. eval:    ``evaluation/loop.py::evaluate_dataset`` over a synthetic COCO
+            set of 8 ``.npy`` images (the three canvases; polygons over
+            four categories, a crowd region): the ground truth fed back
+            scores AP 100.0 (bbox, segm); tight and full pack predictions
+            equal; tight compute gives every metric, finite; launch counts
+            read around each run; avg and steady ms per image.
+8. result:  a ``{"kernels": [...]}`` line whose launches sum the counts
+            of ``serve``, ``serving`` and ``eval``, then the last line
             ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
@@ -126,12 +150,20 @@ def flagship_cfg():
     cfg.SOLVER.STEPS = (60000, 80000)
     cfg.SOLVER.MAX_ITER = 90000
     cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
-    # zy_model_config.yaml
-    cfg.MODEL.WEIGHTS = ""
+    # zy_model_config.yaml (its WEIGHTS: "" merges as None)
+    cfg.MODEL.WEIGHTS = None
     cfg.MODEL.VOVNET.CONV_BODY = "V-39-eSE"
     cfg.SOLVER.STEPS = (210000, 250000)
     cfg.SOLVER.MAX_ITER = 270000
     cfg.OUTPUT_DIR = "output/zy_outputs"
+    return cfg
+
+
+def serving_cfg():
+    """``configs/centermask/zy_model_serving.yaml``: the flagship with the
+    s2d stem input (the raw uint8 s2d pack, normalized on the device)."""
+    cfg = flagship_cfg()
+    cfg.TPU.S2D_STEM_INPUT = True
     return cfg
 
 
@@ -594,31 +626,38 @@ def serve(dev):
     ok = model32.inference(images[0])
     with plain_kernels():
         op = model32.inference(images[0])
-    torch.cuda.synchronize()
-    n = check_outputs(ok, 1, K, "f32 kernels")
-    check_outputs(op, 1, K, "f32 plain")
-    if not torch.equal(ok.valid, op.valid):
-        raise AssertionError("f32: kernel and plain valid masks differ")
-    v = ok.valid[0]
-    if not torch.equal(ok.pred_classes[0][v], op.pred_classes[0][v]):
-        raise AssertionError("f32: classes differ")
-    for f, (rtol, atol) in E2E_TOL.items():
-        a, b = getattr(ok, f)[0][v].double(), getattr(op, f)[0][v].double()
-        err = float((a - b).abs().max())
-        if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"f32 {f}: max abs err {err} outside "
-                                 f"rtol {rtol} atol {atol}")
-        log(f"  f32 kernels vs plain {f}: max abs err {err:.3e} "
-            f"(rtol {rtol}, atol {atol})")
+    n = compare_outputs(ok, op, K, "f32 kernels vs plain")
     log(f"  f32 {REQUESTS[0][1]}x{REQUESTS[0][2]}: {n} valid slots, "
         "classes equal")
     return {"bfloat16": model, "float32": model32}, launches, images
 
 
+def compare_outputs(a, b, K: int, what: str) -> int:
+    """Two requests' outputs slot by slot: equal valid masks and classes,
+    the other heads within ``E2E_TOL``. Returns the valid count."""
+    torch.cuda.synchronize()
+    n = check_outputs(a, 1, K, what)
+    check_outputs(b, 1, K, what)
+    if not torch.equal(a.valid, b.valid):
+        raise AssertionError(f"{what}: valid masks differ")
+    v = a.valid[0]
+    if not torch.equal(a.pred_classes[0][v], b.pred_classes[0][v]):
+        raise AssertionError(f"{what}: classes differ")
+    for f, (rtol, atol) in E2E_TOL.items():
+        x, y = getattr(a, f)[0][v].double(), getattr(b, f)[0][v].double()
+        err = float((x - y).abs().max())
+        if not torch.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what} {f}: max abs err {err} outside "
+                                 f"rtol {rtol} atol {atol}")
+        log(f"  {what} {f}: max abs err {err:.3e} (rtol {rtol}, "
+            f"atol {atol})")
+    return n
+
+
 # ------------------------------------------------------------------ time
-def capture_kernel_inputs(model, img) -> dict:
+def capture_kernel_inputs(request) -> dict:
     """The arguments the main path passes to each kernel in one request
-    (the request runs through the kernels as usual)."""
+    (``request()``, which runs through the kernels as usual)."""
     seen = {}
 
     def recorder(name, fn):
@@ -631,7 +670,7 @@ def capture_kernel_inputs(model, img) -> dict:
 
     with kernels_swapped(recorder("nms", _kernels.nms_keep_sorted),
                          recorder("roi_align", _kernels.roi_align)):
-        model.inference(img)
+        request()
     torch.cuda.synchronize()
     if set(seen) != {"nms", "roi_align"}:
         raise AssertionError(f"request reached only {sorted(seen)}")
@@ -711,11 +750,7 @@ def latency_window(model, img, seconds: float = WINDOW_S,
     collection time, and the thread's involuntary context switches. Then
     the device time per request, replayed as a CUDA graph."""
     def request():
-        out = model.inference(img)
-        acc = out.locations.sum() + out.mask_scores.sum() + \
-            out.pred_boxes.sum() + out.pred_classes.sum() + \
-            out.pred_masks.sum() + out.scores.sum() + out.valid.sum()
-        return acc
+        return reduce_outputs(model.inference(img))
 
     t_end = time.perf_counter() + warmup_s
     n = 0
@@ -766,15 +801,17 @@ def latency_window(model, img, seconds: float = WINDOW_S,
             "device": dev_ms}
 
 
-def profile_request(model, img) -> None:
+def profile_request(request, what: str) -> None:
+    """Device kernel time of one ``request()`` by the profiler, against its
+    wall time, and the largest CUDA kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    model.inference(img)
+    request()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.inference(img)
+        request()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.key_averages()
@@ -784,12 +821,434 @@ def profile_request(model, img) -> None:
     if total == 0:
         log("  profiler: no device time recorded (not measured)")
         return
-    log(f"  profiler, one bf16 800x1088 request: device kernel time "
+    log(f"  profiler, one {what}: device kernel time "
         f"{total:.3f} ms in {wall:.3f} ms wall (device idle share "
         f"{max(0.0, 1 - total / wall):.3f}, profiler on)")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
         log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
+
+
+# --------------------------------------------------------------- serving
+FIXED = 1344  # the deployment canvas, TPU.FIXED_EDGE_SIZE
+SHORT = 800  # INPUT.MIN_SIZE_TEST, the serving canvas's short side
+# (seed, H, W) of the serving images, at their resized sizes: the first is
+# the checks' image; the three cover the tight canvases 1344x800,
+# 800x1344 and 800x800
+SERVING_IMAGES = ((200, 1333, 800), (201, 800, 1333), (202, 800, 800))
+# s2d stem against the plain stem in f32, TF32 off: max abs err within
+# STEM_TOL of the largest plain output (cuDNN sums the 2x2 s2d convs and
+# the 3x3 convs in different orders, by different algorithms); the CPU
+# test of the same stems holds them to the same limit
+STEM_TOL = 1e-5
+PER_LEVEL_CANDIDATES = 5000  # TPU.NMS_CANDIDATES of the per-level request
+
+
+def u8_image(seed: int, H: int, W: int) -> np.ndarray:
+    """A uint8 (H, W, 3) BGR image from a seed, already at its resized
+    size."""
+    return np.random.RandomState(seed).randint(0, 256, (H, W, 3)) \
+        .astype(np.uint8)
+
+
+def serving_inputs(img: np.ndarray, fixed: int, short: int, dev):
+    """The host's uint8 s2d pack of ``img`` over its quantized tight
+    canvas, on the device, with its valid_hw and the canvas."""
+    from centermask2_tpu_torch.data import s2d_pack_u8, s2d_serving_canvas
+
+    h, w = img.shape[:2]
+    canvas = s2d_serving_canvas(h, w, fixed, short)
+    pack = torch.from_numpy(s2d_pack_u8(img, canvas)).to(dev)
+    return pack, torch.tensor([[h, w]], dtype=torch.int32, device=dev), canvas
+
+
+def reduce_outputs(out) -> torch.Tensor:
+    """Every output head reduced into one value (nothing left for the
+    device to skip)."""
+    return out.locations.sum() + out.mask_scores.sum() + \
+        out.pred_boxes.sum() + out.pred_classes.sum() + \
+        out.pred_masks.sum() + out.scores.sum() + out.valid.sum()
+
+
+def check_u8_normalization(model, img, fixed: int, short: int, dev):
+    """The tight uint8 pack padded back and normalized on the device must
+    be ``torch.equal`` to the host's f32 s2d input. Returns it (NHWC)."""
+    from centermask2_tpu_torch.data import s2d_preprocess
+
+    x, hw, canvas = serving_inputs(img, fixed, short, dev)
+    got = model._normalize_u8_s2d(model._pad_to_canvas(x, (fixed, fixed)),
+                                  hw)
+    want = torch.from_numpy(s2d_preprocess(img, fixed)).to(dev)
+    equal = torch.equal(got, want)
+    log(f"  uint8 {img.shape[0]}x{img.shape[1]} packed over {canvas[0]}x"
+        f"{canvas[1]} ({x.numel()} bytes), padded back to {fixed}x{fixed} "
+        f"and normalized on the device: torch.equal to the host f32 s2d "
+        f"input {tuple(want.shape)}: {equal}")
+    if not equal:
+        raise AssertionError("uint8 normalization differs from the host's")
+    return got
+
+
+def check_s2d_stem(model_s2d, model_plain, xd, img, fixed: int, dev) -> float:
+    """The s2d stem on the normalized pack ``xd`` against the plain stem on
+    the normalized image canvas, within STEM_TOL of the largest plain
+    value. Returns the max abs error."""
+    from centermask2_tpu_torch.data import single_preprocessing
+
+    x = torch.from_numpy(single_preprocessing(img, fixed)[None]).to(dev)
+    with torch.no_grad():
+        want = model_plain.backbone.stem(x.permute(0, 3, 1, 2).contiguous())
+        got = model_s2d.backbone.stem(xd.permute(0, 3, 1, 2).contiguous())
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"s2d stem {tuple(got.shape)} vs plain "
+                             f"{tuple(want.shape)}")
+    d = (got - want).abs()
+    err, scale = float(d.max()), float(want.abs().max())
+    i = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    log(f"  s2d stem vs plain stem, f32: {tuple(got.shape)}, max abs err "
+        f"{err:.3e} of max |plain| {scale:.3e} (tolerance {STEM_TOL} x "
+        f"that); worst at (n, c, y, x) {tuple(int(v) for v in i)}: s2d "
+        f"{float(got[i]):.9g} plain {float(want[i]):.9g}")
+    if not err <= STEM_TOL * scale:
+        raise AssertionError(f"s2d stem: max abs err {err} outside "
+                             f"{STEM_TOL} x {scale}")
+    return err
+
+
+def graph_ms(request) -> tuple:
+    """(eager ms, device ms as a CUDA graph) of one request."""
+    for _ in range(3):  # cuDNN's first calls at a new shape
+        request()
+    torch.cuda.synchronize()
+    eager = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        request()
+        b.record()
+        b.synchronize()
+        eager.append(a.elapsed_time(b))
+    med = float(np.median(eager))
+    return med, device_ms_per_request(request, med)
+
+
+def serving_times(model, imgs, fixed: int, short: int, dev) -> None:
+    """Device ms per bf16 request by CUDA-graph replay at each tight
+    canvas (tight compute) and at the deployment canvas (pad-back), the
+    host's pack time per image, and the bytes each request sends."""
+    from centermask2_tpu_torch.data import s2d_pack_u8, s2d_serving_canvas
+
+    card = card_line()
+    cases = []
+    for img in imgs:
+        x, hw, canvas = serving_inputs(img, fixed, short, dev)
+        cases.append((f"{canvas[0]}x{canvas[1]} tight compute", x, hw, None))
+    x, hw, _ = serving_inputs(imgs[1], fixed, short, dev)
+    cases.append((f"{fixed}x{fixed} pad-back of the {imgs[1].shape[0]}x"
+                  f"{imgs[1].shape[1]} pack", x, hw, (fixed, fixed)))
+    for name, x, hw, canvas in cases:
+        eager, device = graph_ms(
+            lambda x=x, hw=hw, c=canvas: reduce_outputs(
+                model.inference(x, None, hw, c)))
+        log(f"  bf16 {name}: device {device:.3f} ms/req as a CUDA graph, "
+            f"eager median of 5 {eager:.3f} ms ({card})")
+    x, hw = cases[1][1:3]
+    profile_request(lambda: model.inference(x, None, hw),
+                    f"bf16 {cases[1][0]} request")
+    for img in imgs:
+        h, w = img.shape[:2]
+        canvas = s2d_serving_canvas(h, w, fixed, short)
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            pack = s2d_pack_u8(img, canvas)
+            times.append((time.perf_counter() - t0) * 1e3)
+        full = (fixed // 4 + 1) ** 2 * 48
+        log(f"  host pack {h}x{w} over {canvas[0]}x{canvas[1]}: median "
+            f"{np.median(times):.3f} ms (numpy, 7 runs; "
+            f"{len(os.sched_getaffinity(0))} host CPUs); bytes per request "
+            f"{pack.nbytes} uint8 tight, {full} uint8 full canvas, "
+            f"{fixed * fixed * 3 * 4} f32 NHWC canvas "
+            f"({fixed * fixed * 12 / pack.nbytes:.2f}x the tight pack)")
+
+
+def check_captured(seen, what: str, errs: dict) -> None:
+    """Each kernel against its plain version on the inputs captured from
+    one request (``capture_kernel_inputs``); the worst errors go into
+    ``errs``."""
+    errs["nms"] = max(errs["nms"], nms_case(*seen["nms"], what))
+    errs["roi_align"] = max(errs["roi_align"],
+                            roi_case(*seen["roi_align"][:7], what))
+
+
+def serving(dev, models, cfg, fixed: int = FIXED, short: int = SHORT,
+            shapes=SERVING_IMAGES, timing: bool = True):
+    """The ``[serving]`` phase on the s2d serving config ``cfg``
+    (``serving_cfg()``). ``models``: the NHWC models of ``[serve]`` by dtype
+    name, whose parameters the s2d models load. Returns (the bf16 s2d
+    model, launches of its main-path requests, launches of the per-level
+    request, the largest kernel/plain error of each kernel)."""
+    from centermask2_tpu_torch.data import single_preprocessing
+    from centermask2_tpu_torch.ops import _kernels
+
+    if not cfg.TPU.S2D_STEM_INPUT:
+        raise ValueError("serving: the config needs TPU.S2D_STEM_INPUT")
+    K = cfg.MODEL.FCOS.POST_NMS_TOPK_TEST
+    model = build_model(cfg, dev)
+    model.load_state_dict(models["bfloat16"].state_dict())
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = build_model(cfg32, dev)
+    model32.load_state_dict(models["float32"].state_dict())
+    imgs = [u8_image(*s) for s in shapes]
+    errs = {"nms": 0, "roi_align": 0.0}
+
+    xd = check_u8_normalization(model32, imgs[0], fixed, short, dev)
+    check_s2d_stem(model32, models["float32"], xd, imgs[0], fixed, dev)
+    x, hw, _ = serving_inputs(imgs[0], fixed, short, dev)
+    nhwc = torch.from_numpy(single_preprocessing(imgs[0], fixed)[None]).to(dev)
+    outs = []
+    seen = capture_kernel_inputs(lambda: outs.append(
+        model32.inference(x, None, hw, (fixed, fixed))))
+    check_captured(seen, f"f32 uint8 {fixed}x{fixed} pad-back request", errs)
+    with plain_kernels():
+        plain = model32.inference(x, None, hw, (fixed, fixed))
+    compare_outputs(outs[0], plain, K, f"f32 uint8 {fixed}x{fixed} kernels "
+                    "vs plain")
+    n = compare_outputs(outs[0], models["float32"].inference(nhwc), K,
+                        "f32 uint8 tight pack vs f32 NHWC")
+    log(f"  f32 {fixed}x{fixed}: {n} valid slots, classes equal")
+
+    # the main path: each image's tight pack, padded back and at its own
+    # canvas, in bf16 through the kernels, launch counts read around it;
+    # each request's kernel inputs are captured (the capture passes the
+    # calls through) and checked against the plain versions after it
+    packs = [serving_inputs(img, fixed, short, dev) for img in imgs]
+    model.inference(packs[0][0], None, packs[0][1], (fixed, fixed))  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    captured = []
+    for img, (x, hw, canvas) in zip(imgs, packs):
+        for c in ((fixed, fixed), None):
+            outs = []
+            seen = capture_kernel_inputs(lambda: outs.append(
+                model.inference(x, None, hw, c)))
+            where = f"{img.shape[0]}x{img.shape[1]} " + (
+                f"{fixed}x{fixed} pad-back" if c else
+                f"{canvas[0]}x{canvas[1]} tight compute")
+            n = check_outputs(outs[0], 1, K, f"bf16 {where}")
+            log(f"  bf16 {where}: {n} valid of {K}")
+            captured.append((seen, f"bf16 {where}"))
+    launches = {"nms": _kernels.nms_launches,
+                "roi_align": _kernels.roi_align_launches}
+    if set(launches.values()) != {len(captured)}:
+        raise AssertionError(f"{len(captured)} serving requests: launches "
+                             f"{launches}")
+    log(f"  {len(captured)} bf16 serving requests: launches {launches}")
+    for seen, what in captured:
+        check_captured(seen, what, errs)
+    del captured, seen
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.inference(x, None, hw, (fixed, fixed))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_outputs(out, 1, K, "sync-debug uint8 request")
+    log("  uint8 request under sync-debug mode 'error', inputs on the "
+        "device: no host sync on the path")
+
+    per_level = per_level_request(cfg, models["bfloat16"], imgs[0], fixed,
+                                  short, dev, K, timing, errs)
+    if timing:
+        serving_times(model, imgs, fixed, short, dev)
+    return model, launches, per_level, errs
+
+
+def per_level_request(cfg, params_from, img, fixed: int, short: int, dev,
+                      K: int, timing: bool, errs: dict) -> dict:
+    """One bf16 request with TPU.NMS_CANDIDATES = 5000 (every level's top
+    PRE_NMS_TOPK_TEST into one NMS): one launch of each kernel, the keep
+    set bit-equal to the plain NMS and the ROIAlign within tolerance of
+    the plain version on the captured inputs. Returns the request's
+    launches."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    cfg = cfg.clone()
+    cfg.TPU.NMS_CANDIDATES = PER_LEVEL_CANDIDATES
+    model = build_model(cfg, dev)
+    model.load_state_dict(params_from.state_dict())
+    x, hw, _ = serving_inputs(img, fixed, short, dev)
+    model.inference(x, None, hw, (fixed, fixed))  # warm-up
+    torch.cuda.synchronize()
+    outs = []
+    _kernels.reset_launch_counts()
+    seen = capture_kernel_inputs(lambda: outs.append(
+        model.inference(x, None, hw, (fixed, fixed))))
+    launches = {"nms": _kernels.nms_launches,
+                "roi_align": _kernels.roi_align_launches}
+    n = check_outputs(outs[0], 1, K, "per-level request")
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"per-level request: launches {launches}")
+    sboxes, svalid, thr = seen["nms"]
+    log(f"  per-level bf16 request: NMS over N = {int(svalid.shape[1])} "
+        f"sorted rows ({int(svalid.sum())} valid candidates), {n} valid of "
+        f"{K}, launches {launches}")
+    check_captured(seen, f"per-level request {fixed}x{fixed}", errs)
+    if timing:
+        nms_row(sboxes, svalid, thr, "per-level request")
+    return launches
+
+
+# ------------------------------------------------------------------ eval
+# (H, W) of the eval images, already at their resized sizes (short edge
+# 800, long edge up to 1333): landscape, portrait and square, so the
+# three serving canvases all occur
+EVAL_SHAPES = ((800, 1333), (1333, 800), (800, 800), (800, 1200),
+               (1066, 800), (800, 1088), (1200, 800), (800, 800))
+EVAL_CATEGORIES = (1, 3, 18, 44)
+
+
+def _polygon(rng, x0, y0, bw, bh, kind: int):
+    """A rectangle, triangle or hexagon in the box (x0, y0, bw, bh)."""
+    if kind == 0:
+        pts = [(0, 0), (1, 0), (1, 1), (0, 1)]
+    elif kind == 1:
+        pts = [(0, 1), (0.5, 0), (1, 1)]
+    else:
+        pts = [(0.25, 0), (0.75, 0), (1, 0.5), (0.75, 1), (0.25, 1), (0, 0.5)]
+    return [float(v) for px, py in pts for v in (x0 + px * bw, y0 + py * bh)]
+
+
+def make_coco_dataset(root: str, shapes=EVAL_SHAPES, seed: int = 7,
+                      sides=(20, 64, 240)) -> str:
+    """A COCO-format dataset from a seed: uint8 BGR images as ``.npy``,
+    and per image a small, a medium and a large polygon (boxes of about
+    ``sides``, within 10%) over the categories in turn, plus one crowd
+    region in the first image. Returns the annotation json's path."""
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i, (H, W) in enumerate(shapes, 1):
+        name = f"{i:012d}.npy"
+        np.save(os.path.join(root, name), u8_image(seed + i, H, W))
+        images.append({"id": i, "file_name": name, "height": H, "width": W})
+        for j, side in enumerate(sides):
+            bw, bh = side * (0.9 + 0.2 * rng.rand(2))
+            x0, y0 = rng.rand() * (W - bw - 1), rng.rand() * (H - bh - 1)
+            kind = (i + j) % 3
+            area = bw * bh * (1.0, 0.5, 0.75)[kind]
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": EVAL_CATEGORIES[len(anns) % len(
+                             EVAL_CATEGORIES)],
+                         "bbox": [x0, y0, bw, bh], "area": area, "iscrowd": 0,
+                         "segmentation": [_polygon(rng, x0, y0, bw, bh,
+                                                   kind)]})
+    H, W = shapes[0]
+    anns.append({"id": len(anns) + 1, "image_id": 1,
+                 "category_id": EVAL_CATEGORIES[0],
+                 "bbox": [0.0, 0.0, W / 2, H / 2], "area": W * H / 4,
+                 "iscrowd": 1,
+                 "segmentation": [_polygon(rng, 0, 0, W / 2, H / 2, 0)]})
+    path = os.path.join(root, "ann.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c, "name": f"cat{c}"}
+                                  for c in EVAL_CATEGORIES]}, f)
+    return path
+
+
+def check_ground_truth_ap(ann: str) -> dict:
+    """The ground truth fed back as predictions (score 1, its masks
+    rasterized at full resolution) must score AP 100.0, bbox and segm."""
+    from centermask2_tpu_torch.evaluation import COCOEvaluator, COCOGt, rle
+
+    with open(ann) as f:
+        gt = COCOGt(json.load(f))
+    cls = {c: i for i, c in enumerate(sorted(gt.cats))}
+    ev = COCOEvaluator(gt, category_id_map={i: c for c, i in cls.items()})
+    for img_id in sorted(gt.imgs):
+        a = [x for x in gt.img_to_anns[img_id] if not x["iscrowd"]]
+        xywh = np.array([x["bbox"] for x in a], np.float64)
+        ones = np.ones(len(a))
+        ev.process(img_id, {
+            "pred_boxes": np.concatenate([xywh[:, :2],
+                                          xywh[:, :2] + xywh[:, 2:]], 1),
+            "scores": ones, "mask_scores": ones,
+            "pred_classes": np.array([cls[x["category_id"]] for x in a]),
+            "pred_masks": np.stack([rle.decode(gt.ann_rle(x)) for x in a])})
+    res = ev.evaluate()
+    ap = {t: res[t]["AP"] for t in ("bbox", "segm")}
+    log(f"  evaluator, ground truth fed back: AP bbox {ap['bbox']:.4f}, "
+        f"segm {ap['segm']:.4f}")
+    if any(abs(v - 100.0) > 1e-9 for v in ap.values()):
+        raise AssertionError(f"ground truth fed back scores {ap}")
+    return ap
+
+
+def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
+               max_size: int = 1333, shapes=EVAL_SHAPES,
+               sides=(20, 64, 240)) -> dict:
+    """The ``[eval]`` phase: ``evaluate_dataset`` over a synthetic COCO set
+    in a temporary directory, read through ``np.load``. The tight and the
+    full pack must give equal predictions; tight compute must give finite
+    metrics under every key. Returns the launches of its requests."""
+    import tempfile
+
+    from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+    from centermask2_tpu_torch.ops import _kernels
+
+    card = card_line()
+    launches = {"nms": 0, "roi_align": 0}
+    with tempfile.TemporaryDirectory() as root:
+        ann = make_coco_dataset(root, shapes, sides=sides)
+        check_ground_truth_ap(ann)
+        common = dict(ann=ann, image_root=root, fixed_size=fixed,
+                      min_size=min_size, max_size=max_size,
+                      progress_every=0, read_image=np.load)
+        runs = {}
+        for mode, kw in (("tight pack, pad-back", {}),
+                         ("full pack", {"tight": False}),
+                         ("tight compute", {"tight_compute": True})):
+            _kernels.reset_launch_counts()
+            res, avg_ms, ev = evaluate_dataset(model, **kw, **common)
+            got = {"nms": _kernels.nms_launches,
+                   "roi_align": _kernels.roi_align_launches}
+            if set(got.values()) != {len(shapes)}:
+                raise AssertionError(f"eval {mode}: launches {got} for "
+                                     f"{len(shapes)} images")
+            for k in launches:
+                launches[k] += got[k]
+            runs[mode] = (res, ev)
+            log(f"  eval {mode}: {len(shapes)} images, "
+                f"{len(ev.predictions)} predictions, avg {avg_ms:.3f} "
+                f"ms/img, steady {ev.steady_ms_per_image:.3f} ms/img "
+                f"(median completion interval), bbox AP "
+                f"{res['bbox']['AP']:.4f}, launches {got} ({card})")
+    tight, full = runs["tight pack, pad-back"][1], runs["full pack"][1]
+    if tight.predictions != full.predictions:
+        raise AssertionError("eval: tight and full pack predictions differ")
+    log(f"  eval: tight and full pack predictions equal "
+        f"({len(tight.predictions)})")
+    res = runs["tight compute"][0]
+    want = {"bbox": {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR1",
+                     "AR10", "AR100"}, "segm": None, "box_proposals": {
+                "AR@100", "ARs@100", "ARm@100", "ARl@100", "AR@1000",
+                "ARs@1000", "ARm@1000", "ARl@1000"}}
+    want["segm"] = want["bbox"]
+    for task, keys in want.items():
+        metrics = res.get(task, {})
+        missing = keys - set(metrics)
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if missing or bad:
+            raise AssertionError(f"eval tight compute {task}: missing "
+                                 f"{sorted(missing)}, not finite {bad}")
+    log(f"  eval tight compute: every metric present and finite; segm AP "
+        f"{res['segm']['AP']:.4f}, AR@100 "
+        f"{res['box_proposals']['AR@100']:.4f}")
+    return launches
 
 
 def main() -> int:
@@ -822,7 +1281,8 @@ def main() -> int:
 
     log("[time] each kernel on the inputs of a served bf16 "
         f"{REQUESTS[0][1]}x{REQUESTS[0][2]} request ({card})")
-    seen = capture_kernel_inputs(models["bfloat16"], images[0])
+    seen = capture_kernel_inputs(lambda: models["bfloat16"].inference(
+        images[0]))
     nms_err = max(nms_err, nms_case(*seen["nms"], "served request"))
     roi_args = seen["roi_align"]
     roi_err = max(roi_err, roi_case(*roi_args[:7], "served request"))
@@ -853,11 +1313,23 @@ def main() -> int:
                     f"{r['device']:.3f} ms/req as a CUDA graph (idle share "
                     f"{max(0.0, 1 - r['device'] / r['median']):.3f}); sm/max "
                     f"MHz, C before: {clk} ({card})")
-    profile_request(models["bfloat16"], images[0])
+    profile_request(lambda: models["bfloat16"].inference(images[0]),
+                    "bf16 800x1088 request")
     torch.cuda.synchronize()
 
+    log("[serving] zy_model_serving.yaml: uint8 s2d tight packs, the s2d "
+        "stem, the per-level decode, the same parameters as [serve]")
+    s2d_model, serving_launches, per_level, errs = serving(dev, models,
+                                                           serving_cfg())
+    nms["max_abs_err"] = max(nms["max_abs_err"], errs["nms"])
+    roi["max_abs_err"] = max(roi["max_abs_err"], errs["roi_align"])
+    log("[eval] evaluate_dataset over a synthetic COCO set, serving model "
+        "in bf16")
+    eval_launches = eval_phase(dev, s2d_model)
+
     for row in (nms, roi):
-        row["launches"] = launches[row["name"]]
+        row["launches"] = sum(c[row["name"]] for c in (
+            launches, serving_launches, per_level, eval_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")

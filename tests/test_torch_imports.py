@@ -59,16 +59,32 @@ def test_imports_with_jax_blocked():
     assert "imported" in res.stdout
 
 
-def test_chip_smoke_config_is_the_flagship_yaml():
+def test_imports_with_jax_pil_and_cv2_blocked():
+    """The card's machine may have no PIL or cv2: no port module and not
+    chip_smoke imports either when it is imported."""
+    banned = set(BANNED) | {"PIL", "cv2"}
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKER.format(banned=banned)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0, res.stderr
+    assert "imported" in res.stdout
+
+
+@pytest.mark.parametrize("yaml_name,build", [
+    ("zy_model_config.yaml", "flagship_cfg"),
+    ("zy_model_serving.yaml", "serving_cfg")])
+def test_chip_smoke_config_is_the_flagship_yaml(yaml_name, build):
     import chip_smoke
     from centermask2_tpu_torch.config import get_cfg
 
     want = get_cfg()
-    want.merge_from_file(str(REPO / "configs/centermask/zy_model_config.yaml"))
-    got = chip_smoke.flagship_cfg()
+    want.merge_from_file(str(REPO / "configs/centermask" / yaml_name))
+    got = getattr(chip_smoke, build)()
     assert got == want
     assert got.MODEL.VOVNET.CONV_BODY == "V-39-eSE"
     assert got.TPU.COMPUTE_DTYPE == "bfloat16"
+    assert got.TPU.S2D_STEM_INPUT == (build == "serving_cfg")
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -175,7 +175,7 @@ def test_build_on_cpu_runs_bf16_inference():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPU.S2D_STEM_INPUT", True), ("TPU.POOLER_SAMPLING_RATIO", 0),
+    ("TPU.POOLER_SAMPLING_RATIO", 0),
     ("MODEL.KEYPOINT_ON", True), ("MODEL.VOVNET.CONV_BODY", "V-19-slim-dw-eSE"),
     ("MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone")])
 def test_unported_options_raise(key, value):
@@ -183,14 +183,6 @@ def test_unported_options_raise(key, value):
     cfg.merge_from_list([key, str(value)])
     with pytest.raises(NotImplementedError):
         build_centermask(cfg, device="cpu")
-
-
-def test_per_level_decode_branch_raises():
-    cfg = _small_cfg()
-    cfg.TPU.NMS_CANDIDATES = 2000  # > PRE_NMS_TOPK_TEST
-    model = build_centermask(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="per-level"):
-        model.inference(torch.zeros(1, 64, 64, 3))
 
 
 def test_decode_matches_jax():
