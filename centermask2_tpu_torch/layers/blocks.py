@@ -196,8 +196,8 @@ def get_norm(norm: str, features: int) -> Optional[nn.Module]:
         return GroupNorm(features)
     if norm in ("BN", "SyncBN"):
         raise NotImplementedError(
-            f"norm {norm!r} is train-only and not ported yet "
-            "(ROADMAP queue 1, item 13)")
+            f"norm {norm!r} is not ported yet (ROADMAP queue 1, item 14, "
+            "with data parallelism)")
     raise ValueError(f"Unknown norm: {norm}")
 
 

@@ -153,7 +153,8 @@ def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
 
     XLA folds these into constants of the JAX program; in eager PyTorch
     they cost some eighty small launches, so ``VoVNet`` builds them once
-    per set of weights. Packing (JAX ``vovnet.py:244-254``): stem_1's
+    per set of weights for inference. The build is linear in the
+    parameters and differentiable (slice writes into zeros). Packing (JAX ``vovnet.py:244-254``): stem_1's
     four phases in one conv; stem_2's phases paired over Q in (2, 3)
     kernels with each phase's 2x2 kernel at column offset Q; stem_3's
     phase-(0,0) kernel split channel-wise over the two stem_2 pairs."""
@@ -252,10 +253,13 @@ class VoVNet(nn.Module):
     (B, 16 * in_channels, H/4+1, W/4+1) and the stem runs in s2d
     coordinates (``s2d_stem_forward``); standard-conv bodies with
     FrozenBN only, as in the JAX package. The parameters stay the
-    logical ``stem_{1,2,3}`` 3x3 kernels, so checkpoints load unchanged;
-    the embedded kernels are built from them at the first forward and
-    again whenever a stem parameter was replaced, moved or written in
-    place (its tensor, storage or version counter changed)."""
+    logical ``stem_{1,2,3}`` 3x3 kernels, so checkpoints load unchanged.
+    With grad enabled (training) the embedded kernels are built from them
+    inside the autograd graph on every forward, so the stem trains as the
+    plain stem does. Under ``no_grad`` (inference) they are built at the
+    first forward and again whenever a stem parameter was replaced, moved
+    or written in place (its tensor, storage or version counter
+    changed)."""
 
     def __init__(self, body: str = "V-39-eSE",
                  out_features: Sequence[str] = ("stage2", "stage3", "stage4",
@@ -301,7 +305,8 @@ class VoVNet(nn.Module):
 
     def s2d_kernels(self) -> S2DStemKernels:
         """The s2d stem's kernels for the current stem parameters, built
-        once per set of weights (see the class docstring)."""
+        once per set of weights, detached: the inference path's (see the
+        class docstring)."""
         srcs = self._stem_sources()
         key = tuple((t.data_ptr(), t._version) for t in srcs)
         c = self._s2d_cache
@@ -315,9 +320,15 @@ class VoVNet(nn.Module):
         return self._s2d_cache[2]
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        if self.s2d_input:
-            return s2d_stem_forward(x, self.s2d_kernels())
-        return self.stem_3(self.stem_2(self.stem_1(x)))
+        if not self.s2d_input:
+            return self.stem_3(self.stem_2(self.stem_1(x)))
+        if torch.is_grad_enabled():  # a differentiable function of the stem
+            srcs = self._stem_sources()
+            kernels = s2d_stem_kernels(*(tuple(srcs[i:i + 3])
+                                         for i in (0, 3, 6)), self.dtype)
+        else:
+            kernels = self.s2d_kernels()
+        return s2d_stem_forward(x, kernels)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)

@@ -1,5 +1,5 @@
-"""CenterMask meta-architecture, inference: backbone -> FPN -> FCOS ->
-ROI heads (the port of ``centermask2_tpu/models/meta.py``).
+"""CenterMask meta-architecture: backbone -> FPN -> FCOS -> ROI heads
+(the port of ``centermask2_tpu/models/meta.py``).
 
 ``CenterMask.inference`` takes the JAX model's inputs and returns the
 same fixed-capacity ``InferenceOutputs``: the six tensors of the
@@ -12,9 +12,15 @@ validity mask. Inside, the activations are NCHW. The inputs are
   the device zero-pads back to the deployment canvas (``_pad_to_canvas``)
   or that the program runs at as it is (tight compute).
 
-Not ported yet, each raising ``NotImplementedError``: training (ROADMAP
-queue 1, item 13), keypoints and DCN (item 12), and the ResNet and
-MobileNet backbones (item 11).
+``CenterMask.loss`` is the training branch (JAX ``meta.py:437-629``):
+FCOS target assignment and losses, the train-mode decode (detached),
+proposal matching and sampling, the foreground pick, the mask and
+MaskIoU losses on the multilevel ROIAlign of the picked boxes. Its
+inputs are the f32 canvas (or its s2d layout) and a ``GroundTruth``.
+
+Not ported yet, each raising ``NotImplementedError``: keypoints and DCN
+(ROADMAP queue 1, item 12), the ResNet and MobileNet backbones (item 11),
+BN and SyncBN (item 14) and ``TPU.REMAT_BACKBONE`` (item 13).
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ from torch import nn
 from ..config import CfgNode
 from ..layers import reset_parameters
 from ..utils.device import DeviceLike, resolve_device
+from ..ops import masked_topk
+from ..ops.losses import optax_sigmoid_bce
 from .backbones import FPN, VoVNet, feature_channels
 from .backbones.vovnet import FEATURE_STRIDES
-from .fcos import FCOSHead, compute_locations, decode_batch
-from .roi import CenterROIHeads
+from .fcos import (FCOSHead, assign_targets_single_image, compute_locations,
+                   decode_batch, fcos_losses, level_metadata)
+from .roi import CenterROIHeads, label_and_sample_proposals, mask_iou_loss
 
 
 class InferenceOutputs(NamedTuple):
@@ -51,6 +60,17 @@ class InferenceOutputs(NamedTuple):
     pred_masks: torch.Tensor  # (B, K, 1, 2M, 2M)
     scores: torch.Tensor  # (B, K)
     valid: torch.Tensor  # (B, K) bool
+
+
+class GroundTruth(NamedTuple):
+    """Padded per-batch training targets (the host pipeline's output,
+    ``data/coco.py::train_batches``)."""
+
+    boxes: torch.Tensor  # (B, G, 4) xyxy in network input coords
+    classes: torch.Tensor  # (B, G) int
+    valid: torch.Tensor  # (B, G) bool
+    mask_patches: torch.Tensor  # (B, G, P, P) float {0,1} over each gt box
+    image_sizes: Optional[torch.Tensor] = None  # (B, 2) true (h, w)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -79,10 +99,20 @@ class CenterMask(nn.Module):
         pre_nms_thresh_test: float = 0.05,
         pre_nms_topk_test: int = 1000,
         post_nms_topk_test: int = 50,
+        pre_nms_thresh_train: float = 0.05,
+        pre_nms_topk_train: int = 1000,
+        post_nms_topk_train: int = 100,
         nms_thresh: float = 0.6,
         nms_candidates: int = 1000,
+        sizes_of_interest: Sequence[int] = (64, 128, 256, 512),
+        center_sample: bool = True,
+        pos_radius: float = 1.5,
+        loc_loss_type: str = "giou",
+        focal_alpha: float = 0.25,
+        focal_gamma: float = 2.0,
         mask_on: bool = True,
         maskiou_on: bool = True,
+        maskiou_loss_weight: float = 1.0,
         roi_in_features: Sequence[str] = ("p3", "p4", "p5"),
         roi_in_strides: Sequence[int] = (8, 16, 32),
         assign_criterion: str = "ratio",
@@ -94,6 +124,12 @@ class CenterMask(nn.Module):
         mask_num_conv: int = 4,
         maskiou_conv_dim: int = 256,
         maskiou_num_conv: int = 4,
+        batch_size_per_image: int = 512,
+        positive_fraction: float = 0.25,
+        max_fg_proposals: int = 128,
+        roi_iou_thresholds: Sequence[float] = (0.5,),
+        roi_iou_labels: Sequence[int] = (0, 1),
+        proposal_append_gt: bool = True,
         s2d_input: bool = False,
         pixel_mean: Sequence[float] = (103.53, 116.28, 123.675),
         dtype: torch.dtype = torch.bfloat16,
@@ -107,12 +143,31 @@ class CenterMask(nn.Module):
         self.fpn_strides = tuple(fpn_strides)
         self.roi_in_features = tuple(roi_in_features)
         self.mask_on = mask_on
+        self.maskiou_on = maskiou_on
         self.pooler_resolution = pooler_resolution
+        self.num_classes = num_classes
         self.decode_kwargs = dict(
             pre_nms_thresh=pre_nms_thresh_test,
             pre_nms_topk=pre_nms_topk_test, nms_thresh=nms_thresh,
             post_nms_topk=post_nms_topk_test, nms_candidates=nms_candidates,
             thresh_with_ctr=thresh_with_ctr)
+        self.train_decode_kwargs = dict(
+            self.decode_kwargs, pre_nms_thresh=pre_nms_thresh_train,
+            pre_nms_topk=pre_nms_topk_train,
+            post_nms_topk=post_nms_topk_train)
+        self.sizes_of_interest = tuple(sizes_of_interest)
+        self.center_sample = center_sample
+        self.pos_radius = pos_radius
+        self.loc_loss_type = loc_loss_type
+        self.focal_alpha = focal_alpha
+        self.focal_gamma = focal_gamma
+        self.maskiou_loss_weight = maskiou_loss_weight
+        self.batch_size_per_image = batch_size_per_image
+        self.positive_fraction = positive_fraction
+        self.max_fg_proposals = max_fg_proposals
+        self.roi_iou_thresholds = tuple(roi_iou_thresholds)
+        self.roi_iou_labels = tuple(roi_iou_labels)
+        self.proposal_append_gt = proposal_append_gt
         self.dtype = dtype
         self.s2d_input = s2d_input
         # BGR mean of the on-device normalization of uint8 inputs
@@ -163,9 +218,10 @@ class CenterMask(nn.Module):
                                       fcos_feats[0].device)
         return locations, logits, reg, ctr
 
-    def _decode(self, locations, logits, reg, ctr):
+    def _decode(self, locations, logits, reg, ctr, training: bool = False):
         return decode_batch(locations, logits, reg, ctr, self.fpn_strides,
-                            **self.decode_kwargs)
+                            **(self.train_decode_kwargs if training
+                               else self.decode_kwargs))
 
     def forward(self, images: torch.Tensor,
                 image_sizes: Optional[torch.Tensor] = None,
@@ -320,13 +376,209 @@ class CenterMask(nn.Module):
         return InferenceOutputs(*(torch.cat(f) for f in zip(*outs)))
 
 
+    # ------------------------------------------------------------------
+    def loss(self, images: torch.Tensor, gt: GroundTruth,
+             draws: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        """Training losses (FCOS + mask + MaskIoU), f32 scalars on the
+        device, with no host sync (JAX ``meta.py:437-629``).
+
+        ``images``: the f32 normalized canvas (B, H, W, 3), or its s2d
+        layout with ``s2d_input``. ``draws``: the proposal sampler's
+        uniform numbers, (B, K + G) with K = the post-NMS train proposals
+        and G = the gt capacity when PROPOSAL_APPEND_GT is on (else
+        (B, K)); drawn from ``generator`` (on the images' device) when
+        not given."""
+        B = images.shape[0]
+        H, W = self.canvas_hw(images)
+        dev = images.device
+        feats = self.features(images)
+        locations, logits, reg, ctr = self._fcos_raw(feats)
+
+        # ---- FCOS losses: level-first flattening like the reference
+        strides_per_loc, ranges = level_metadata(
+            [loc.shape[0] for loc in locations], self.fpn_strides,
+            self.sizes_of_interest, dev)
+        labels, reg_targets = assign_targets_single_image(
+            torch.cat(locations), strides_per_loc, ranges, gt.boxes,
+            gt.classes, gt.valid, self.num_classes, self.center_sample,
+            self.pos_radius)
+        # normalize reg targets by per-location stride (fcos_outputs.py:229)
+        reg_targets = reg_targets / strides_per_loc[None, :, None]
+
+        def flat(xs, n):  # per-level (B, n, H, W) -> (B * L, n)
+            return torch.cat([x.permute(0, 2, 3, 1).reshape(B, -1, n)
+                              for x in xs], dim=1).reshape(-1, n)
+
+        losses = fcos_losses(
+            labels.reshape(-1), reg_targets.reshape(-1, 4),
+            flat(logits, self.num_classes), flat(reg, 4), flat(ctr, 1)[:, 0],
+            self.num_classes, self.focal_alpha, self.focal_gamma,
+            self.loc_loss_type)
+        if not self.mask_on:
+            return losses
+
+        # ---- proposals for ROI training, detached (the reference labels
+        # and samples them under no_grad, center_heads.py:178)
+        with torch.no_grad():
+            proposals = self._decode(locations, logits, reg, ctr,
+                                     training=True)
+        if draws is None:
+            P = proposals.valid.shape[1] + (
+                gt.valid.shape[1] if self.proposal_append_gt else 0)
+            draws = torch.rand((B, P), generator=generator, device=dev)
+        sampled = label_and_sample_proposals(
+            draws, proposals.pred_boxes, proposals.valid, gt.boxes,
+            gt.classes, gt.valid, self.num_classes,
+            self.batch_size_per_image, self.positive_fraction,
+            self.roi_iou_thresholds, self.roi_iou_labels,
+            self.proposal_append_gt)
+
+        # ---- foreground pick, at most max_fg_proposals an image: 0/1
+        # keys, ties taken lowest index first (masked_topk)
+        Fg = self.max_fg_proposals
+        fg_mask = sampled.valid & (sampled.gt_classes != self.num_classes)
+        fg_idx, fg_valid, _ = masked_topk(fg_mask.float(), fg_mask, Fg)
+        R = B * Fg
+        flat_fg_boxes = torch.gather(
+            sampled.boxes, 1, fg_idx[..., None].expand(-1, -1, 4)).reshape(R, 4)
+        flat_fg_valid = fg_valid.reshape(R)
+        flat_fg_classes = torch.clamp(
+            torch.gather(sampled.gt_classes, 1, fg_idx).reshape(R), 0,
+            self.num_classes - 1)
+        fg_gt_idx = torch.gather(sampled.gt_indices, 1, fg_idx)
+        batch_idx = torch.arange(B, dtype=torch.int32,
+                                 device=dev).repeat_interleave(Fg)
+        # ratio-criterion level assignment on the true image areas
+        if gt.image_sizes is not None:
+            img_areas = (gt.image_sizes[:, 0] * gt.image_sizes[:, 1]) \
+                .float().repeat_interleave(Fg)
+        else:
+            img_areas = torch.full((R,), float(H * W), device=dev)
+
+        pooled, mask_logits = self.roi_heads.mask_forward_train(
+            [feats[f] for f in self.roi_in_features], flat_fg_boxes,
+            batch_idx, img_areas)
+
+        # ---- mask targets from the rasterized gt patches
+        G = gt.mask_patches.shape[1]
+        gt_boxes_of_fg = torch.gather(
+            gt.boxes, 1, fg_gt_idx[..., None].expand(-1, -1, 4)).reshape(R, 4)
+        patches_of_fg = gt.mask_patches.flatten(0, 1)[
+            (torch.clamp(fg_gt_idx, 0, G - 1)
+             + torch.arange(B, device=dev)[:, None] * G).reshape(R)].float()
+        m_side = 2 * self.pooler_resolution
+        gt_mask = crop_and_resize_patches(
+            patches_of_fg, gt_boxes_of_fg, flat_fg_boxes, m_side) >= 0.5
+
+        # per-class logit selection as a one-hot contraction (JAX
+        # meta.py:564-567); logits (R, classes, 28, 28)
+        n_out = mask_logits.shape[1]
+        one_hot = (flat_fg_classes[:, None]
+                   == torch.arange(n_out, device=dev)).float()
+        sel_logits = torch.einsum("rchw,rc->rhw", mask_logits.float(),
+                                  one_hot)
+        vmaskf = flat_fg_valid.float()[:, None, None]
+        n_el = torch.clamp_min(vmaskf.sum() * (m_side * m_side), 1.0)
+        losses["loss_mask"] = (optax_sigmoid_bce(sel_logits, gt_mask.float())
+                               * vmaskf).sum() / n_el
+
+        if self.maskiou_on:
+            # maskiou targets (mask_head.py:150-165): the ratio-corrected
+            # IoU of the binarized prediction and the full gt mask
+            with torch.no_grad():
+                pred_bin = sel_logits > 0.0
+                inter = (pred_bin & gt_mask).float().sum(dim=(1, 2))
+                full_area = patches_of_fg.sum(dim=(1, 2))
+                inside = _patch_fraction_inside(
+                    patches_of_fg, gt_boxes_of_fg, flat_fg_boxes)
+                ratio = torch.clamp(inside / torch.clamp_min(full_area, 1e-6),
+                                    0.0, 1.0)
+                ratio = torch.clamp_min(ratio, 1e-10)
+                full_area_28 = gt_mask.float().sum(dim=(1, 2)) / ratio
+                union = pred_bin.float().sum(dim=(1, 2)) + full_area_28 - inter
+                maskiou_targets = inter / torch.clamp_min(union, 1.0)
+            pred_maskiou = self.roi_heads.maskiou_forward(
+                pooled, torch.sigmoid(sel_logits)[:, None])
+            losses["loss_maskiou"] = mask_iou_loss(
+                flat_fg_classes, pred_maskiou.float(), maskiou_targets,
+                flat_fg_valid, self.maskiou_loss_weight)
+        return losses
+
+
+def _resample_matrix(coords: torch.Tensor, size: int, s: int) -> torch.Tensor:
+    """(R, out*s) 1-D ROIAlign sample coords -> (R, out, size) weight
+    matrix folding the bilinear taps and the s-subsample mean, with
+    ``ops/roi_align.py``'s border semantics (zero outside [-1, size],
+    taps clamped to [0, size-1])."""
+    in_r = (coords >= -1.0) & (coords <= size)
+    c = torch.clamp(coords, 0.0, size - 1.0)
+    low = torch.clamp_max(torch.floor(c), size - 1.0)
+    frac = c - low
+    high = torch.clamp_max(low + 1.0, size - 1.0)
+    j = torch.arange(size, dtype=torch.float32, device=coords.device)
+    w = (1.0 - frac)[..., None] * (j == low[..., None]) \
+        + frac[..., None] * (j == high[..., None])
+    w = w * in_r[..., None]
+    R, n = coords.shape
+    return w.reshape(R, n // s, s, size).mean(dim=2)
+
+
+def crop_and_resize_patches(patches: torch.Tensor, gt_boxes: torch.Tensor,
+                            proposal_boxes: torch.Tensor,
+                            out_size: int) -> torch.Tensor:
+    """Sample each gt patch (R, P, P), rasterized over its gt box
+    (R, 4), at its proposal box (R, 4) -> (R, out, out) floats (JAX
+    ``meta.py:650-689``; detectron2's crop_and_resize as separable
+    bilinear resampling: out = Ay @ patch @ Ax^T per ROI)."""
+    P = patches.shape[-1]
+    gx0, gy0, gx1, gy1 = gt_boxes.unbind(1)
+    sx = P / torch.clamp_min(gx1 - gx0, 1e-6)
+    sy = P / torch.clamp_min(gy1 - gy0, 1e-6)
+    # proposal box in patch coords, then aligned sample coords per axis
+    bx0 = (proposal_boxes[:, 0] - gx0) * sx - 0.5
+    by0 = (proposal_boxes[:, 1] - gy0) * sy - 0.5
+    bx1 = (proposal_boxes[:, 2] - gx0) * sx - 0.5
+    by1 = (proposal_boxes[:, 3] - gy0) * sy - 0.5
+    s = 2
+    grid = (torch.arange(out_size * s, dtype=torch.float32,
+                         device=patches.device) + 0.5) * (1.0 / s)
+    step = 1.0 / out_size
+    ys = by0[:, None] + grid[None, :] * ((by1 - by0) * step)[:, None]
+    xs = bx0[:, None] + grid[None, :] * ((bx1 - bx0) * step)[:, None]
+    ay = _resample_matrix(ys, P, s)  # (R, out, P)
+    ax = _resample_matrix(xs, P, s)
+    t = torch.einsum("rij,rjk->rik", ay, patches.float())
+    return torch.einsum("rik,rlk->ril", t, ax)
+
+
+def _patch_fraction_inside(patches: torch.Tensor, gt_boxes: torch.Tensor,
+                           proposal_boxes: torch.Tensor) -> torch.Tensor:
+    """Sum of patch mass whose cell centers fall inside the proposal box
+    (JAX ``meta.py:692-703``)."""
+    P = patches.shape[1]
+    gx0, gy0, gx1, gy1 = gt_boxes.unbind(1)
+    cells = (torch.arange(P, dtype=torch.float32, device=patches.device)
+             + 0.5) / P
+    cell_y = gy0[:, None] + cells[None, :] * (gy1 - gy0)[:, None]  # (R, P)
+    cell_x = gx0[:, None] + cells[None, :] * (gx1 - gx0)[:, None]
+    in_y = (cell_y >= proposal_boxes[:, 1:2]) & \
+        (cell_y <= proposal_boxes[:, 3:4])
+    in_x = (cell_x >= proposal_boxes[:, 0:1]) & \
+        (cell_x <= proposal_boxes[:, 2:3])
+    inside = in_y[:, :, None] & in_x[:, None, :]
+    return (patches * inside).sum(dim=(1, 2))
+
+
 def build_centermask(cfg: CfgNode, device: DeviceLike = None,
                      seed: int = 0) -> CenterMask:
     """Construct the model from a config on ``device`` (``cuda`` unless the
     caller asks for ``cpu``; raises with no GPU and no explicit request),
     in eval mode, with parameters drawn from ``seed`` by the JAX
     package's initializers. Load real weights afterwards with
-    ``checkpoint.from_jax.load_jax_params``."""
+    ``checkpoint.from_jax.load_jax_params``. Training takes the same
+    model (no layer behaves differently in train mode)."""
     dev = resolve_device(device)
     backbone_name = cfg.MODEL.BACKBONE.NAME
     if "mobilenet" in backbone_name or "resnet" in backbone_name or \
@@ -343,6 +595,14 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
     if cfg.TPU.APPROX_TOPK:
         raise NotImplementedError(
             "TPU.APPROX_TOPK has no port (ROADMAP queue 1, item 11)")
+    if cfg.TPU.REMAT_BACKBONE:
+        raise NotImplementedError(
+            "TPU.REMAT_BACKBONE (backbone recomputation in the backward) is "
+            "not ported yet (ROADMAP queue 1, item 13)")
+    if cfg.MODEL.VOVNET.NORM in ("BN", "SyncBN"):
+        raise NotImplementedError(
+            f"norm {cfg.MODEL.VOVNET.NORM!r} is not ported yet (ROADMAP "
+            "queue 1, item 14)")
     fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or ("stage3", "stage4", "stage5")
     model = CenterMask(
         conv_body=cfg.MODEL.VOVNET.CONV_BODY,
@@ -368,10 +628,20 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         # binds here when tighter than the FCOS post-NMS top-k
         post_nms_topk_test=min(cfg.MODEL.FCOS.POST_NMS_TOPK_TEST,
                                cfg.TEST.DETECTIONS_PER_IMAGE),
+        pre_nms_thresh_train=cfg.MODEL.FCOS.INFERENCE_TH_TRAIN,
+        pre_nms_topk_train=cfg.MODEL.FCOS.PRE_NMS_TOPK_TRAIN,
+        post_nms_topk_train=cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN,
         nms_thresh=cfg.MODEL.FCOS.NMS_TH,
         nms_candidates=cfg.TPU.NMS_CANDIDATES,
+        sizes_of_interest=tuple(cfg.MODEL.FCOS.SIZES_OF_INTEREST),
+        center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
+        pos_radius=cfg.MODEL.FCOS.POS_RADIUS,
+        loc_loss_type=cfg.MODEL.FCOS.LOC_LOSS_TYPE,
+        focal_alpha=cfg.MODEL.FCOS.LOSS_ALPHA,
+        focal_gamma=cfg.MODEL.FCOS.LOSS_GAMMA,
         mask_on=cfg.MODEL.MASK_ON,
         maskiou_on=cfg.MODEL.MASKIOU_ON,
+        maskiou_loss_weight=cfg.MODEL.MASKIOU_LOSS_WEIGHT,
         roi_in_features=tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES),
         roi_in_strides=tuple(
             {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64}[f]
@@ -385,6 +655,12 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
         maskiou_conv_dim=cfg.MODEL.ROI_MASKIOU_HEAD.CONV_DIM,
         maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV,
+        batch_size_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        positive_fraction=cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION,
+        max_fg_proposals=cfg.TPU.MAX_FG_PROPOSALS,
+        roi_iou_thresholds=tuple(cfg.MODEL.ROI_HEADS.IOU_THRESHOLDS),
+        roi_iou_labels=tuple(cfg.MODEL.ROI_HEADS.IOU_LABELS),
+        proposal_append_gt=cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT,
         s2d_input=cfg.TPU.S2D_STEM_INPUT,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],

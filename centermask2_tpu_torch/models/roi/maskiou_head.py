@@ -1,9 +1,10 @@
 """MaskIoU rescoring head, NCHW (the port of
 ``centermask2_tpu/models/roi/maskiou_head.py``): concat(mask features
 (R, C, 14, 14), maxpool2x2(pred mask 28x28)), 4 conv3x3 (last stride 2 ->
-7x7), 3 FC (1024, 1024, num_classes). ``maskiou_fc1`` reads the (C, 7, 7)
-activation flattened C-major, the torch order; ``checkpoint/from_jax.py``
-permutes the JAX (7, 7, C) columns into it.
+7x7), 3 FC (1024, 1024, num_classes); and its training loss.
+``maskiou_fc1`` reads the (C, 7, 7) activation flattened C-major, the
+torch order; ``checkpoint/from_jax.py`` permutes the JAX (7, 7, C)
+columns into it.
 """
 
 from __future__ import annotations
@@ -55,3 +56,17 @@ def mask_iou_inference(pred_maskiou: torch.Tensor, pred_classes: torch.Tensor,
     maskiou_head.py:50-60)."""
     sel = torch.gather(pred_maskiou, 1, pred_classes.long()[:, None])[:, 0]
     return scores * sel.to(scores.dtype)
+
+
+def mask_iou_loss(labels: torch.Tensor, pred_maskiou: torch.Tensor,
+                  gt_maskiou: torch.Tensor, valid: torch.Tensor,
+                  loss_weight: float = 1.0) -> torch.Tensor:
+    """L2 on the live rows with gt_maskiou > 0, averaged over their count
+    (reference maskiou_head.py:18-47), masked. labels (R,) gt classes,
+    pred_maskiou (R, C), gt_maskiou (R,), valid (R,) bool."""
+    sel = torch.gather(pred_maskiou, 1, labels.long()[:, None])[:, 0]
+    posf = (valid & (gt_maskiou > 0.0)).float()
+    n = posf.sum()
+    cond = torch.abs(sel - gt_maskiou) * posf
+    loss = 0.5 * torch.sum(cond ** 2) / torch.clamp_min(n, 1.0)
+    return loss_weight * torch.where(n > 0, loss, torch.zeros_like(loss))

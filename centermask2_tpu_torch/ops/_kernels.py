@@ -11,9 +11,9 @@ reused; ``.gitignore`` lists ``_build/``.
 The launch functions take CUDA tensors only, check device, dtype, shape
 and contiguity, launch on PyTorch's current stream, raise if the C entry
 returns a CUDA error, and add one to their launch count
-(``nms_launches``, ``roi_align_launches``). The routing from CPU tensors
-to the plain PyTorch versions lives in ``ops/nms.py`` and
-``ops/roi_align.py``.
+(``nms_launches``, ``roi_align_launches``,
+``roi_align_backward_launches``). The routing from CPU tensors to the
+plain PyTorch versions lives in ``ops/nms.py`` and ``ops/roi_align.py``.
 """
 
 from __future__ import annotations
@@ -42,14 +42,21 @@ MAX_ROI_SAMPLES = 64  # kMaxSamples in csrc/roi_align.cu: o * s per axis
 
 nms_launches = 0
 roi_align_launches = 0
+roi_align_backward_launches = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    global nms_launches, roi_align_launches
+    global nms_launches, roi_align_launches, roi_align_backward_launches
     nms_launches = 0
     roi_align_launches = 0
+    roi_align_backward_launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {"nms": nms_launches, "roi_align": roi_align_launches,
+            "roi_align_backward": roi_align_backward_launches}
 
 
 def _nvcc() -> str:
@@ -127,6 +134,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cm2_roi_align.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                       vp, ci, ci, ci, ci, vp, vp]
         lib.cm2_roi_align.restype = ci
+        lib.cm2_roi_align_backward.argtypes = [
+            ci, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci,
+            vp, ctypes.c_longlong, vp, vp]
+        lib.cm2_roi_align_backward.restype = ci
     return lib
 
 
@@ -237,3 +248,65 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     _check(rc, "cm2_roi_align")
     roi_align_launches += 1
     return out
+
+
+def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
+                       batch_indices: torch.Tensor, levels: torch.Tensor,
+                       shapes: Sequence[Sequence[int]], dtype: torch.dtype,
+                       scales: Sequence[float], output_size: int,
+                       sampling_ratio: int,
+                       aligned: bool) -> List[torch.Tensor]:
+    """Kernel 2b (csrc/roi_align.cu): the feature gradient of kernel 2.
+    grad (R, C, o, o) in ``dtype`` (f32 or bf16); returns one (N, C, Hl,
+    Wl) gradient per level of ``shapes`` in ``dtype``. One f32 scratch
+    holds every level (zeroed on the stream by the C entry); f32 levels
+    are views of it, bf16 levels views of its cast."""
+    global roi_align_backward_launches
+    if output_size * sampling_ratio > MAX_ROI_SAMPLES or sampling_ratio <= 0:
+        raise ValueError(f"roi_align_backward: output_size * sampling_ratio "
+                         f"= {output_size * sampling_ratio} outside the "
+                         f"kernel's 1..{MAX_ROI_SAMPLES} samples per axis")
+    dev = _require_cuda("roi_align_backward", grad, boxes, batch_indices,
+                        levels)
+    if dtype not in _ROI_DTYPES or grad.dtype != dtype:
+        raise ValueError(f"roi_align_backward: grad {grad.dtype} must be the "
+                         f"features' dtype {dtype}, f32 or bf16")
+    shapes = [tuple(int(v) for v in shp) for shp in shapes]
+    N, C = shapes[0][:2]
+    if any(len(shp) != 4 or shp[:2] != (N, C) for shp in shapes) or \
+            len(shapes) != len(scales):
+        raise ValueError("roi_align_backward: levels must be (N, C, H, W) "
+                         "alike in N, C, one scale each")
+    R = boxes.shape[0]
+    if boxes.dtype != torch.float32 or tuple(boxes.shape) != (R, 4) or \
+            tuple(grad.shape) != (R, C, output_size, output_size):
+        raise ValueError(f"roi_align_backward: boxes {tuple(boxes.shape)}, "
+                         f"grad {tuple(grad.shape)}")
+    if batch_indices.dtype != torch.int32 or levels.dtype != torch.int32 or \
+            batch_indices.shape != (R,) or levels.shape != (R,):
+        raise ValueError("roi_align_backward: batch_indices/levels must be "
+                         "(R,) int32")
+    L = len(shapes)
+    sizes = [N * C * h * w for _, _, h, w in shapes]
+    offsets = [sum(sizes[:i]) for i in range(L)]
+    total = sum(sizes)
+    scratch = torch.empty(total, dtype=torch.float32, device=dev)
+    out = scratch if dtype == torch.float32 else \
+        torch.empty(total, dtype=dtype, device=dev)
+    hs = (ctypes.c_int * L)(*[shp[2] for shp in shapes])
+    ws = (ctypes.c_int * L)(*[shp[3] for shp in shapes])
+    sc = (ctypes.c_float * L)(*[float(s) for s in scales])
+    offs = (ctypes.c_longlong * L)(*offsets)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib("roi_align").cm2_roi_align_backward(
+        _ROI_DTYPES[dtype], grad.data_ptr(),
+        ctypes.cast(hs, ctypes.c_void_p), ctypes.cast(ws, ctypes.c_void_p),
+        ctypes.cast(sc, ctypes.c_void_p), ctypes.cast(offs, ctypes.c_void_p),
+        L, N, C, boxes.data_ptr(), batch_indices.data_ptr(),
+        levels.data_ptr(), R, output_size, sampling_ratio, int(aligned),
+        scratch.data_ptr(), total,
+        out.data_ptr() if dtype != torch.float32 else None, stream)
+    _check(rc, "cm2_roi_align_backward")
+    roi_align_backward_launches += 1
+    return [out[o:o + n].view(shp)
+            for o, n, shp in zip(offsets, sizes, shapes)]

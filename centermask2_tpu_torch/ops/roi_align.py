@@ -1,33 +1,42 @@
-"""Multilevel ROIAlign (aligned semantics), inference only (the port of
+"""Multilevel ROIAlign (aligned semantics) and its gradient (the port of
 ``centermask2_tpu/ops/roi_align.py``).
 
 All FPN levels are pooled in one call: each ROI samples its own assigned
 level, with no per-level loop and no scatter. Features are NCHW per
 level, (N, C, Hl, Wl); the output is (R, C, o, o).
 
-- On CUDA tensors the op is kernel 2 (``csrc/roi_align.cu`` via
+- On CUDA tensors the forward is kernel 2 (``csrc/roi_align.cu`` via
   ``_kernels``): level pick, sample coordinates, bilinear taps and the
-  s x s bin mean in one launch.
-- On CPU tensors it is the plain version ``multilevel_roi_align_plain``,
-  which follows the JAX ``_multilevel_impl`` (``roi_align.py:251-291``):
-  one (S, 4C) table of every level's 2x2 tap blocks, one row gather, the
-  weighted tap combine and the bin average.
+  s x s bin mean in one launch; the backward is kernel 2b in the same
+  source, which scatters each output gradient into the 4 taps of every
+  sample with f32 atomics and casts the sums to the features' dtype.
+- On CPU tensors the forward is the plain version
+  ``multilevel_roi_align_plain``, which follows the JAX
+  ``_multilevel_impl`` (``roi_align.py:251-291``): one (S, 4C) table of
+  every level's 2x2 tap blocks, one row gather, the weighted tap combine
+  and the bin average. The backward is ``roi_align_feature_grad_plain``,
+  JAX's separable VJP (``_separable_feature_grad``, ``:325-349``): per
+  level, two einsums with the 1-D pooling matrices of each axis.
+
+``multilevel_roi_align`` is a ``torch.autograd.Function``: features get
+their gradient, boxes, batch indices and levels none (JAX returns zeros
+for boxes, ``:373``; proposals are detached before ROI training).
 
 Bilinear tap semantics follow the JAX formulas (``roi_align.py:53-56``,
 ``:77-96``): samples with y < -1 or y > H contribute zero; in-range
 coordinates clamp to [0, H-1] with taps at floor and min(floor+1, H-1).
-Both versions do the same f32 operations (XLA's, with each division by a
-constant a product with its f32 reciprocal), accumulate in float32 and
-return the features' dtype.
+Both forward versions do the same f32 operations (XLA's, with each
+division by a constant a product with its f32 reciprocal), accumulate in
+float32 and return the features' dtype.
 
-Not ported here: the custom separable-matmul VJP (training, ROADMAP
-queue 1 item 13) and ``sampling_ratio=0``'s adaptive buckets (item 12).
+Not ported here: ``sampling_ratio=0``'s adaptive buckets (ROADMAP queue
+1, item 12).
 """
 
 from __future__ import annotations
 
 import sys
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -150,6 +159,128 @@ def multilevel_roi_align_plain(
     return out.permute(0, 3, 1, 2).to(features[0].dtype).contiguous()
 
 
+def _axis_pool_matrix(coords: torch.Tensor, size: int, output_size: int,
+                      sampling_ratio: int, roi_mask: torch.Tensor,
+                      offsets: Optional[torch.Tensor],
+                      total: int) -> torch.Tensor:
+    """The 1-D pooling operator of one axis, (R, o, total) f32: pooling
+    along the axis is ``out[r, i] = sum_y A[r, i, y] * feat[y]`` (JAX
+    ``roi_align.py:294-322``). The taps of ``_bilinear_taps`` (zero
+    outside [-1, size], clamped, high tap min(low + 1, size - 1)), the
+    1/s share of the bin mean, rows of ROIs not on this level zero;
+    ``offsets`` shifts each ROI's rows into a (images x size)-tall
+    axis."""
+    fsize = float(size)
+    inr = (coords >= -1.0) & (coords <= fsize)
+    c = torch.clamp_min(coords, 0.0)
+    low = torch.minimum(torch.floor(c), torch.full_like(c, fsize - 1.0))
+    c = torch.minimum(c, torch.full_like(c, fsize - 1.0))
+    lw = c - low
+    hw = 1.0 - lw
+    low_i = low.long()
+    high_i = torch.clamp_max(low_i + 1, size - 1)
+    if offsets is not None:
+        low_i = low_i + offsets[:, None]
+        high_i = high_i + offsets[:, None]
+    cols = torch.arange(total, device=coords.device)
+    w = hw[..., None] * (low_i[..., None] == cols) \
+        + lw[..., None] * (high_i[..., None] == cols)
+    w = w * (inr & roi_mask[:, None])[..., None]
+    R = coords.shape[0]
+    w = w.reshape(R, output_size, sampling_ratio, total)
+    return w.sum(dim=2) * (1.0 / sampling_ratio)
+
+
+def roi_align_feature_grad_plain(
+    grad: torch.Tensor,  # (R, C, o, o)
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    levels: torch.Tensor,
+    shapes: Sequence[Tuple[int, int, int, int]],  # per level (N, C, H, W)
+    dtype: torch.dtype,
+    scales: Sequence[float],
+    output_size: int,
+    sampling_ratio: int = 2,
+    aligned: bool = True,
+) -> List[torch.Tensor]:
+    """Plain PyTorch version of kernel 2b: the feature gradient of the
+    multilevel ROIAlign, one (N, C, H, W) tensor per level in ``dtype``.
+
+    The pool is separable, out[r,c,i,j] = sum_y Ay[r,i,y] sum_x Ax[r,j,x]
+    feat[b_r,c,y,x], so its transpose is two einsums per level, with the
+    image index folded into Ay's rows (JAX ``_separable_feature_grad``).
+    Computed in f32 and cast once (JAX casts the pooling matrices to the
+    gradient's dtype instead: equal in f32)."""
+    L = len(shapes)
+    lv = torch.clamp(levels.long(), 0, L - 1)
+    scale_r = torch.full(lv.shape, float(scales[0]), device=boxes.device)
+    for i in range(1, L):
+        scale_r = scale_r.masked_fill(lv == i, float(scales[i]))
+    ys, xs = _axis_coords(boxes.float(), scale_r, output_size,
+                          sampling_ratio, aligned)
+    bidx = batch_indices.long()
+    g = grad.float()
+    out = []
+    for lvl, (N, C, H, W) in enumerate(shapes):
+        on_l = lv == lvl
+        ay = _axis_pool_matrix(ys, H, output_size, sampling_ratio, on_l,
+                               bidx * H, N * H)
+        ax = _axis_pool_matrix(xs, W, output_size, sampling_ratio, on_l,
+                               None, W)
+        tmp = torch.einsum("rjx,rcij->rcix", ax, g)
+        d = torch.einsum("riy,rcix->cyx", ay, tmp)  # (C, N*H, W)
+        out.append(d.reshape(C, N, H, W).transpose(0, 1).to(dtype)
+                   .contiguous())
+    return out
+
+
+def _forward(features, boxes, batch_indices, levels, scales, output_size,
+             sampling_ratio, aligned) -> torch.Tensor:
+    if boxes.is_cuda:
+        return _kernels.roi_align(
+            [f.contiguous() for f in features], boxes.float().contiguous(),
+            batch_indices.to(torch.int32).contiguous(),
+            levels.to(torch.int32).contiguous(), scales, output_size,
+            sampling_ratio, aligned)
+    return multilevel_roi_align_plain(features, boxes, batch_indices, levels,
+                                      scales, output_size, sampling_ratio,
+                                      aligned)
+
+
+def _backward(grad, boxes, batch_indices, levels, shapes, dtype, scales,
+              output_size, sampling_ratio, aligned) -> List[torch.Tensor]:
+    if grad.is_cuda:
+        return _kernels.roi_align_backward(
+            grad.contiguous(), boxes.float().contiguous(),
+            batch_indices.to(torch.int32).contiguous(),
+            levels.to(torch.int32).contiguous(), shapes, dtype, scales,
+            output_size, sampling_ratio, aligned)
+    return roi_align_feature_grad_plain(grad, boxes, batch_indices, levels,
+                                        shapes, dtype, scales, output_size,
+                                        sampling_ratio, aligned)
+
+
+class _MultilevelRoiAlign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, boxes, batch_indices, levels, scales, output_size,
+                sampling_ratio, aligned, *features):
+        ctx.save_for_backward(boxes, batch_indices, levels)
+        ctx.args = (tuple(tuple(f.shape) for f in features),
+                    features[0].dtype, tuple(scales), output_size,
+                    sampling_ratio, aligned)
+        return _forward(list(features), boxes, batch_indices, levels, scales,
+                        output_size, sampling_ratio, aligned)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        boxes, batch_indices, levels = ctx.saved_tensors
+        shapes, dtype, scales, o, s, aligned = ctx.args
+        grads = _backward(grad, boxes, batch_indices, levels, shapes, dtype,
+                          scales, o, s, aligned)
+        return (None,) * 7 + tuple(grads)
+
+
 def multilevel_roi_align(
     features: List[torch.Tensor],
     boxes: torch.Tensor,
@@ -160,21 +291,17 @@ def multilevel_roi_align(
     sampling_ratio: int = 2,
     aligned: bool = True,
 ) -> torch.Tensor:
-    """Multilevel ROIAlign -> (R, C, o, o): kernel 2 on CUDA tensors, the
-    plain version on CPU tensors."""
+    """Multilevel ROIAlign -> (R, C, o, o): kernels 2 and 2b on CUDA
+    tensors, the plain versions on CPU tensors; differentiable in the
+    features."""
     if sampling_ratio == 0:
         raise NotImplementedError(
             "sampling_ratio=0 (adaptive buckets) is not ported yet "
             "(ROADMAP queue 1, item 12)")
-    if boxes.is_cuda:
-        return _kernels.roi_align(
-            [f.contiguous() for f in features], boxes.float().contiguous(),
-            batch_indices.to(torch.int32).contiguous(),
-            levels.to(torch.int32).contiguous(), scales, output_size,
-            sampling_ratio, aligned)
-    return multilevel_roi_align_plain(features, boxes, batch_indices, levels,
-                                      scales, output_size, sampling_ratio,
-                                      aligned)
+    return _MultilevelRoiAlign.apply(
+        boxes.detach(), batch_indices.detach(), levels.detach(),
+        tuple(float(s) for s in scales), output_size, sampling_ratio,
+        aligned, *features)
 
 
 # the f32 reciprocal of the f32 log(2), as the Python float it equals

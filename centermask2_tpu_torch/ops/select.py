@@ -18,8 +18,13 @@ def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
     padded with invalid slots.
 
     Returns (indices (..., k), valid (..., k), values (..., k)). Invalid
-    slots carry NEG_INF values and arbitrary in-range indices.
+    slots carry NEG_INF values. Equal values are taken lowest index
+    first, as ``lax.top_k`` takes them: a stable descending sort, not
+    ``torch.topk``, whose order among ties is unspecified. The training
+    fg pick (``CenterMask.loss``) ranks 0/1 values, where ties are the
+    rule.
     """
     masked = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    vals, idx = torch.topk(masked, k, dim=-1)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
     return idx, vals > NEG_INF / 2, vals

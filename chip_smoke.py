@@ -61,9 +61,23 @@ times the kernels and the end-to-end latency. Phases, in order:
             scores AP 100.0 (bbox, segm); tight and full pack predictions
             equal; tight compute gives every metric, finite; launch counts
             read around each run; avg and steady ms per image.
-8. result:  a ``{"kernels": [...]}`` line whose launches sum the counts
-            of ``serve``, ``serving`` and ``eval``, then the last line
-            ``{"ok": true, "device": {...}}``.
+8. train:   the flagship trained at full width in bf16 (1344x1344, B = 2,
+            20 gt boxes an image, synthetic batches in ``train_batches``'
+            format) through ``train/trainer.py::train_loop``: finite
+            losses; one launch of kernel 1, kernel 2 and kernel 2b per step
+            (counts read around every step); a step under sync-debug mode;
+            ms per step (CUDA events, median and quartiles after warm-up),
+            images per second, peak memory, the profiler's top kernels of
+            one step; the three kernels against their plain versions on
+            the inputs captured from a bf16 and an f32 step; the f32 step
+            (TF32 off, deterministic cuDNN) through the kernels against
+            the same step through the plain versions: losses equal,
+            every gradient within 4x its noise floor; 20 bf16 steps on one
+            batch that bring the loss down; a checkpoint round trip and
+            one step after it equal to the step without it.
+9. result:  a ``{"kernels": [...]}`` line whose launches sum the counts
+            of ``serve``, ``serving``, ``eval`` and ``train``, then the last
+            line ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -96,6 +110,9 @@ NMS_SOURCE = "centermask2_tpu_torch/csrc/nms.cu"
 ROI_SOURCE = "centermask2_tpu_torch/csrc/roi_align.cu"
 NMS_REPLACES = "centermask2_tpu/ops/nms_pallas.py:46"
 ROI_REPLACES = "centermask2_tpu/ops/roi_align_pallas.py:46"
+# kernel 2b has no Pallas kernel to replace: JAX computes the ROIAlign
+# VJP in XLA (_separable_feature_grad)
+ROI_BWD_REPLACES = "centermask2_tpu/ops/roi_align.py:325"
 
 # tolerances of the kernel/plain comparisons on the card
 ROI_F32_ATOL = 1e-5  # f32 sums in another order
@@ -103,6 +120,13 @@ ROI_BF16_RTOL = 2.0 ** -7  # both sides round an f32 sum to bf16: <= 1 ulp
 ROI_BF16_ATOL = 1e-6
 E2E_TOL = {"scores": (1e-6, 1e-5), "pred_boxes": (1e-6, 1e-4),
            "pred_masks": (0.0, 1e-4), "mask_scores": (1e-3, 1e-4)}
+# kernel 2b against the plain VJP: its f32 atomics add in an order that
+# changes from run to run, so f32 is held to 1e-5 of the largest plain
+# value and bf16 to one bf16 ulp of each value plus that f32 term
+ROI_BWD_REL = 1e-5
+# the f32 train step through the kernels against the plain versions:
+# every gradient within this factor of its noise floor
+GRAD_NOISE_FACTOR = 4.0
 
 # end-to-end timing: each canvas and dtype gets a warm-up, then a timed
 # window of at least WINDOW_S seconds and MIN_TIMED requests; the sweep
@@ -230,28 +254,37 @@ def nms_inputs(rng: np.random.RandomState, n: int):
     return boxes, scores, classes, valid
 
 
+KERNEL_FNS = ("nms_keep_sorted", "roi_align", "roi_align_backward")
+
+
 @contextlib.contextmanager
-def kernels_swapped(nms_fn, roi_fn):
-    """Route the ops' kernel calls to ``nms_fn``/``roi_fn`` (same
-    signatures as ``_kernels.nms_keep_sorted``/``_kernels.roi_align``)
-    inside the block; the port itself has one path, by device."""
+def kernels_swapped(nms_fn, roi_fn, roi_bwd_fn=None):
+    """Route the ops' kernel calls to ``nms_fn``/``roi_fn``/``roi_bwd_fn``
+    (same signatures as ``_kernels.nms_keep_sorted``/``roi_align``/
+    ``roi_align_backward``; None keeps the kernel) inside the block; the
+    port itself has one path, by device."""
     from centermask2_tpu_torch.ops import _kernels
 
-    saved = (_kernels.nms_keep_sorted, _kernels.roi_align)
-    _kernels.nms_keep_sorted, _kernels.roi_align = nms_fn, roi_fn
+    saved = tuple(getattr(_kernels, n) for n in KERNEL_FNS)
+    for name, fn in zip(KERNEL_FNS, (nms_fn, roi_fn, roi_bwd_fn)):
+        if fn is not None:
+            setattr(_kernels, name, fn)
     try:
         yield saved
     finally:
-        _kernels.nms_keep_sorted, _kernels.roi_align = saved
+        for name, fn in zip(KERNEL_FNS, saved):
+            setattr(_kernels, name, fn)
 
 
 def plain_kernels():
     """The kernels' plain PyTorch versions in their place, on the card."""
     from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
-    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align_plain
+    from centermask2_tpu_torch.ops.roi_align import (
+        multilevel_roi_align_plain, roi_align_feature_grad_plain)
 
     return kernels_swapped(greedy_keep_sorted_plain,
-                           multilevel_roi_align_plain)
+                           multilevel_roi_align_plain,
+                           roi_align_feature_grad_plain)
 
 
 def nms_row(sboxes, svalid, thr: float, what: str) -> dict:
@@ -1251,6 +1284,525 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
     return launches
 
 
+# ----------------------------------------------------------------- train
+TRAIN_BATCH = 2  # the reference's per-GPU share of IMS_PER_BATCH 16 on 8
+TRAIN_GT = 20  # gt boxes an image, 16 to 600 px
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 10
+OVERFIT_STEPS = 20
+# the classification prior bias (-4.6) leaves every random-weight score
+# under the 0.05 train threshold, so the train decode would hand NMS no
+# candidate; at -2.5 (sigmoid 0.076) over 1000 pass while the focal loss
+# of the ~6 M negatives stays of order 10
+TRAIN_CLS_BIAS = -2.5
+
+
+def _shape_patch(rng, p: int) -> np.ndarray:
+    """A (p, p) {0, 1} mask: a rectangle, triangle or ellipse."""
+    yy, xx = np.mgrid[0:p, 0:p].astype(np.float32) / p
+    kind = rng.randint(3)
+    if kind == 0:
+        a, b = rng.rand(2) * 0.3
+        return ((xx >= a) & (xx <= 1 - b) & (yy >= b) & (yy <= 1 - a)) \
+            .astype(np.float32)
+    if kind == 1:
+        return (yy >= np.abs(xx - 0.5) * 2).astype(np.float32)
+    return (((xx - 0.5) / 0.5) ** 2 + ((yy - 0.5) / 0.45) ** 2 <= 1) \
+        .astype(np.float32)
+
+
+def make_train_batch(seed: int, batch: int, fixed: int, n_gt: int,
+                     max_gt: int, patch: int = 112,
+                     sides=(16, 600)) -> dict:
+    """A batch in ``data/coco.py::train_batches``' format from a seed, on
+    (fixed, fixed) canvases: normalized-scale noise with each gt box
+    painted in a texture, ``n_gt`` boxes of ``sides`` px (log-uniform) an
+    image among ``max_gt`` slots, and 112x112 mask patches (rectangles,
+    triangles, ellipses), so the card needs no cv2 or PIL."""
+    rng = np.random.RandomState(seed)
+    img = (rng.randn(batch, fixed, fixed, 3) * 0.3 - 1.0).astype(np.float32)
+    boxes = np.zeros((batch, max_gt, 4), np.float32)
+    classes = np.zeros((batch, max_gt), np.int32)
+    valid = np.zeros((batch, max_gt), bool)
+    patches = np.zeros((batch, max_gt, patch, patch), np.float32)
+    sizes = np.zeros((batch, 2), np.int32)
+    for b in range(batch):
+        h, w = fixed - rng.randint(0, fixed // 8, 2)
+        sizes[b] = h, w
+        lo, hi = np.log(sides[0]), np.log(min(sides[1], h - 2, w - 2))
+        img[b, h:], img[b, :, w:] = 0.0, 0.0
+        for g in range(n_gt):
+            bw, bh = np.exp(rng.uniform(lo, hi, 2))
+            x0 = rng.rand() * (w - bw - 1)
+            y0 = rng.rand() * (h - bh - 1)
+            boxes[b, g] = x0, y0, x0 + bw, y0 + bh
+            classes[b, g] = rng.randint(80)
+            valid[b, g] = True
+            patches[b, g] = _shape_patch(rng, patch)
+            ys, xs = int(y0), int(x0)
+            img[b, ys:int(y0 + bh), xs:int(x0 + bw)] += \
+                np.float32(1.0 + classes[b, g] / 40.0)
+    return {"image": img, "gt_boxes": boxes, "gt_classes": classes,
+            "gt_valid": valid, "gt_mask_patches": patches,
+            "image_size": sizes}
+
+
+def build_trainer(cfg, dev, state=None):
+    """The flagship model, its optimizer and schedule and the train step
+    (``train/trainer.py::make_train_step``), random weights from seed 0
+    with the classification bias at ``TRAIN_CLS_BIAS``, or ``state``'s
+    parameters."""
+    from centermask2_tpu_torch.train import (make_optimizer_from_cfg,
+                                             make_train_step)
+
+    model = build_model(cfg, dev).train()
+    with torch.no_grad():
+        model.fcos_head.cls_logits.bias.fill_(TRAIN_CLS_BIAS)
+    if state is not None:
+        model.load_state_dict(state)
+    opt, sched = make_optimizer_from_cfg(model, cfg)
+    return model, opt, sched, make_train_step(model, opt, sched)
+
+
+def check_losses(metrics: dict, what: str) -> dict:
+    m = {k: float(v) for k, v in metrics.items()}
+    want = {"loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr", "loss_mask",
+            "loss_maskiou", "total_loss"}
+    if set(m) != want or not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{what}: losses {m}")
+    return m
+
+
+def capture_step_inputs(run) -> dict:
+    """The arguments of each kernel's launch in one train step
+    (``run()``, which goes through the kernels as usual)."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    seen = {}
+
+    def recorder(name, fn):
+        def call(*args):
+            seen[name] = args
+            return fn(*args)
+        return call
+
+    with kernels_swapped(*(recorder(n, getattr(_kernels, n))
+                           for n in KERNEL_FNS)):
+        run()
+    torch.cuda.synchronize()
+    if set(seen) != set(KERNEL_FNS):
+        raise AssertionError(f"the step reached only {sorted(seen)}")
+    return seen
+
+
+def roi_bwd_case(args, what: str) -> float:
+    """Kernel 2b against the plain VJP on one input (tolerance above).
+    Raises outside it; returns the max abs error."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.roi_align import \
+        roi_align_feature_grad_plain
+
+    k = _kernels.roi_align_backward(*args)
+    p = roi_align_feature_grad_plain(*args)
+    torch.cuda.synchronize()
+    dtype = args[5]
+    scale = max(float(t.float().abs().max()) for t in p)
+    worst, bad = 0.0, []
+    for lvl, (a, b) in enumerate(zip(k, p)):
+        if a.shape != b.shape or a.dtype != dtype:
+            raise AssertionError(f"roi_align_backward {what}: level {lvl} "
+                                 f"{tuple(a.shape)} {a.dtype}")
+        d = (a.float() - b.float()).abs()
+        tol = torch.full_like(d, ROI_BWD_REL * scale)
+        if dtype == torch.bfloat16:  # one bf16 ulp of each plain value
+            mag = b.float().abs()
+            tol = tol + torch.where(
+                mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+        worst = max(worst, float(d.max()))
+        if not (bool((d <= tol).all()) and bool(torch.isfinite(a).all())):
+            bad.append(lvl)
+    tol_s = (f"{ROI_BWD_REL} x max|plain|" if dtype == torch.float32 else
+             f"1 bf16 ulp + {ROI_BWD_REL} x max|plain|")
+    log(f"  roi_align_backward {what}: {str(dtype)[6:]} R={args[0].shape[0]} "
+        f"C={args[0].shape[1]}, levels {[tuple(t.shape[2:]) for t in p]}: "
+        f"max abs err {worst:.3e}, max |plain| {scale:.3e} (tolerance "
+        f"{tol_s})")
+    if bad:
+        raise AssertionError(f"roi_align_backward {what}: levels {bad} "
+                             f"outside {tol_s}")
+    return worst
+
+
+def check_roi_bwd_synthetic(dev, fixed: int, batch: int, R: int, C: int,
+                            errs: dict, timing: bool) -> None:
+    """Kernel 2b against the plain VJP on P3-P5 of the training canvas at
+    the step's R and C, f32 and bf16, with ROIs on every level (the
+    served and trained random-weight ROIs all land on P3): the synthetic
+    boxes of ``[kernels]`` (timed with ``timing``), then ROIs all on
+    P5."""
+    from centermask2_tpu_torch.ops import assign_boxes_by_ratio
+    from centermask2_tpu_torch.structures import boxes as box_ops
+
+    rng = np.random.RandomState(2)
+    scales = (1 / 8, 1 / 16, 1 / 32)
+    for large in (False, True):
+        feats, boxes = roi_inputs(rng, fixed, fixed, R, C, batch, dev, large)
+        levels = assign_boxes_by_ratio(
+            box_ops.area(boxes), torch.full((R,), float(fixed * fixed),
+                                            device=dev), 3, 5)
+        bidx = (torch.arange(R, device=dev) % batch).to(torch.int32)
+        grad = torch.from_numpy(
+            rng.randn(R, C, 14, 14).astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (grad.to(dt), boxes, bidx, levels,
+                    [tuple(f.shape) for f in feats], dt, scales, 14, 2, True)
+            what = f"synthetic {'P5 ' if large else ''}ROIs, levels " \
+                f"{sorted(set(levels.tolist()))}"
+            errs["roi_align_backward"] = max(errs["roi_align_backward"],
+                                             roi_bwd_case(args, what))
+            if timing and not large:
+                roi_bwd_row(args, what)
+
+
+def check_step_kernels(seen, what: str, errs: dict) -> None:
+    """The three kernels against their plain versions on one step's
+    captured inputs; the worst errors go into ``errs``."""
+    with torch.no_grad():
+        errs["nms"] = max(errs["nms"],
+                          nms_case(*seen["nms_keep_sorted"], what))
+        errs["roi_align"] = max(errs["roi_align"],
+                                roi_case(*seen["roi_align"][:7], what))
+        errs["roi_align_backward"] = max(
+            errs["roi_align_backward"],
+            roi_bwd_case(seen["roi_align_backward"], what))
+
+
+def roi_bwd_row(args, what: str) -> dict:
+    """Median times of kernel 2b and the plain VJP on one input, and the
+    bound: the gradient read and the level gradients written (bytes), or
+    two flops a tap of every in-range sample (operations)."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.roi_align import (
+        _axis_coords, roi_align_feature_grad_plain)
+
+    grad, boxes, bidx, levels, shapes, dtype, scales, o, s, aligned = args
+    ms = time_gpu_ms(lambda: _kernels.roi_align_backward(*args))
+    plain_ms = time_gpu_ms(lambda: roi_align_feature_grad_plain(*args),
+                           launches=3, repeats=5)
+    R, C = grad.shape[:2]
+    lv = levels.long().clamp(0, len(shapes) - 1)
+    scale_r = torch.tensor(scales, device=boxes.device)[lv]
+    ys, xs = _axis_coords(boxes.float(), scale_r, o, s, aligned)
+    h = torch.tensor([shp[2] for shp in shapes], device=boxes.device)[lv]
+    w = torch.tensor([shp[3] for shp in shapes], device=boxes.device)[lv]
+    ok_y = ((ys >= -1) & (ys <= h[:, None].float())).sum(dim=1)
+    ok_x = ((xs >= -1) & (xs <= w[:, None].float())).sum(dim=1)
+    samples = int((ok_y * ok_x).sum())  # in-range samples of all ROIs
+    elt = grad.element_size()
+    level_elems = sum(int(np.prod(shp)) for shp in shapes)
+    nbytes = grad.numel() * elt + level_elems * elt + R * (16 + 4 + 4)
+    flops = C * samples * 4 * 2 + grad.numel()
+    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
+        "operations"
+    own = (level_elems * 4 * 3 + grad.numel() * elt
+           + (level_elems * elt if dtype != torch.float32 else 0))
+    log(f"  roi_align_backward {what}: {str(dtype)[6:]} R={R} C={C}, "
+        f"{samples} in-range samples, {C * samples * 4} atomic adds; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}: "
+        f"{nbytes} bytes, {flops} flops); the kernel's own traffic (scratch "
+        f"zeroed, added to, read by the cast) is {own} bytes, "
+        f"{own / PEAK_BYTES_S * 1e3:.6f} ms at the peak rate")
+    return {"name": "roi_align_backward", "route": "cuda",
+            "source": ROI_SOURCE, "replaces": ROI_BWD_REPLACES, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def step_grads(model, images, gt, draws):
+    """Losses and parameter gradients of one step, no update."""
+    model.zero_grad(set_to_none=True)
+    losses = model.loss(images, gt, draws=draws)
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    return ({k: v.detach().clone() for k, v in losses.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
+    """One f32 step (TF32 off, deterministic cuDNN) through the kernels
+    against the same step through the plain versions: the losses equal,
+    every parameter gradient within GRAD_NOISE_FACTOR x its noise floor,
+    the larger of the two plain runs' difference, the two kernel runs'
+    difference (kernel 2b's atomics) and 1e-6 of the tensor's largest
+    value. The kernels are held against their plain versions on the
+    step's captured inputs."""
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = build_trainer(cfg32, dev, state)[0]
+        runs = {}
+        seen = capture_step_inputs(lambda: runs.setdefault(
+            "k1", step_grads(model, images, gt, draws)))
+        check_step_kernels(seen, "f32 train step", errs)
+        del seen
+        runs["k2"] = step_grads(model, images, gt, draws)
+        with plain_kernels():
+            runs["p1"] = step_grads(model, images, gt, draws)
+            runs["p2"] = step_grads(model, images, gt, draws)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    (lk, gk), (lp, gp) = runs["k1"], runs["p1"]
+    for name in lk:
+        a, b = float(lk[name]), float(lp[name])
+        if not abs(a - b) <= 1e-6 * abs(b):
+            raise AssertionError(f"f32 step {name}: kernels {a!r} plain {b!r}")
+    log("  f32 train step, kernels vs plain, losses: " + ", ".join(
+        f"{k} {float(lk[k]):.6f} (diff {float(lk[k] - lp[k]):.1e})"
+        for k in lk))
+    worst_ratio, worst_name, floors = 0.0, "", []
+    for name, g in gk.items():
+        p1, p2, k2 = gp[name], runs["p2"][1][name], runs["k2"][1][name]
+        top = float(p1.abs().max())
+        floor = max(float((p1 - p2).abs().max()),
+                    float((g - k2).abs().max()), 1e-6 * top, 1e-30)
+        ratio = float((g - p1).abs().max()) / floor
+        if top > 0:
+            floors.append(floor / top)
+        if ratio > worst_ratio:
+            worst_ratio, worst_name = ratio, name
+    if set(gk) != set(gp) or worst_ratio > GRAD_NOISE_FACTOR:
+        raise AssertionError(f"f32 step gradients: {worst_name} at "
+                             f"{worst_ratio:.2f} x its noise floor")
+    log(f"  f32 train step, kernels vs plain: {len(gk)} parameter gradients, "
+        f"worst {worst_ratio:.2f} x its noise floor ({worst_name}); floors "
+        f"{min(floors):.1e}-{max(floors):.1e} of each tensor's max "
+        f"(tolerance {GRAD_NOISE_FACTOR} x)")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(run) -> None:
+    """Device time of one train step by the profiler, its largest CUDA
+    kernels, and the port's kernels in microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and getattr(e, "device_time_total", 0) > 0]
+    total = sum(e.device_time_total for e in evs) / 1e3
+    if total == 0:
+        log("  profiler: no device time recorded (not measured)")
+        return
+    log(f"  profiler, one bf16 train step: device kernel time {total:.3f} ms "
+        f"in {wall:.3f} ms wall (device idle share "
+        f"{max(0.0, 1 - total / wall):.3f}, profiler on)")
+    for e in sorted(evs, key=lambda e: -e.device_time_total)[:15]:
+        log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    for e in evs:
+        if any(t in e.key for t in ("nms", "roi_align", "cast_bf16")):
+            log(f"  profiler, port kernel in the train step: "
+                f"{e.device_time_total / e.count:.3f} us per launch of "
+                f"{e.key.replace('(anonymous namespace)::', '')[:60]} "
+                f"(x{e.count})")
+
+
+def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
+                n_gt: int = TRAIN_GT, warmup: int = TRAIN_WARMUP,
+                timed: int = TRAIN_TIMED, overfit: int = OVERFIT_STEPS,
+                sides=(16, 600), roi_rc=(256, 256), timing: bool = True):
+    """The ``[train]`` phase on the flagship config ``cfg``. Returns (the
+    launches of its ``train_loop`` steps by kernel, the worst kernel/plain
+    errors, kernel 2b's row or None without ``timing``)."""
+    import itertools
+    import tempfile
+
+    from centermask2_tpu_torch.checkpoint.torch_io import (
+        load_checkpoint, restore_train_state, save_checkpoint, train_state)
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.train import batch_to_device, train_loop
+
+    card = card_line()
+    max_gt = cfg.TPU.MAX_GT_INSTANCES
+    batches = [make_train_batch(300 + i, batch, fixed, n_gt, max_gt,
+                                sides=sides) for i in range(2)]
+    model, opt, sched, step = build_trainer(cfg, dev)
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    totals = {k: 0 for k in ("nms", "roi_align", "roi_align_backward")}
+
+    # the CLI's loop: launch counts and a CUDA event after every step
+    counts, events, metrics_seen = [], [], []
+
+    def after_step(done, metrics):
+        counts.append(_kernels.launch_counts())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics_seen.append(metrics)
+
+    def read_launches(n_steps: int, what: str) -> None:
+        prev = {k: 0 for k in totals}
+        for i, c in enumerate(counts):
+            d = {k: c[k] - prev[k] for k in c}
+            if set(d.values()) != {1}:
+                raise AssertionError(f"{what} step {i}: launches {d}")
+            prev = c
+        if len(counts) != n_steps:
+            raise AssertionError(f"{what}: {len(counts)} of {n_steps} steps")
+        for k in totals:
+            totals[k] += counts[-1][k]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    start_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    t0 = time.perf_counter()
+    train_loop(step, itertools.cycle(batches), device=dev, start_iter=0,
+               max_iter=warmup + timed, generator=gen, log_every=10 ** 9,
+               after_step=after_step, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_launches(warmup + timed, "train_loop")
+    ms = [a.elapsed_time(b) for a, b in zip(events[warmup - 1:],
+                                            events[warmup:])]
+    first = check_losses(metrics_seen[0], "step 1")
+    last = check_losses(metrics_seen[-1], f"step {warmup + timed}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {warmup + timed} bf16 steps through train_loop at {fixed}x{fixed}"
+        f", B={batch}, {n_gt} gt an image: one launch of nms, roi_align and "
+        f"roi_align_backward per step ({totals}); losses finite, step 1 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in first.items())
+        + f"; step {warmup + timed} total {last['total_loss']:.4f}")
+    if timing:
+        q1, q2, q3 = np.percentile(ms, [25, 50, 75])
+        log(f"  ms per bf16 train step (CUDA events over {timed} steps after "
+            f"{warmup} of warm-up): median {q2:.3f} [q1 {q1:.3f}, q3 "
+            f"{q3:.3f}] min {min(ms):.3f} max {max(ms):.3f}; "
+            f"{batch / q2 * 1e3:.3f} images/s; loop wall "
+            f"{wall / (warmup + timed) * 1e3:.3f} ms/step with the first "
+            f"calls; peak memory {peak / 2 ** 30:.3f} GiB "
+            f"(max_memory_allocated) ({card})")
+
+    images, gt = batch_to_device(batches[0], dev)
+    draws = torch.rand((batch, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN + max_gt),
+                       generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(images, gt, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_losses(metrics, "sync-debug step")
+    log("  a bf16 train step under sync-debug mode 'error', inputs on the "
+        "device: no host sync in the step")
+
+    seen = capture_step_inputs(lambda: step(images, gt, draws))
+    check_step_kernels(seen, "bf16 train step", errs)
+    with torch.no_grad():
+        check_roi_bwd_synthetic(dev, fixed, batch, *roi_rc, errs, timing)
+    row = None
+    if timing:
+        with torch.no_grad():
+            nms_row(*seen["nms_keep_sorted"], "bf16 train step")
+            roi_row(*seen["roi_align"], "bf16 train step")
+            row = roi_bwd_row(seen["roi_align_backward"], "bf16 train step")
+        profile_train_step(lambda: step(images, gt, draws))
+    del seen
+
+    check_f32_step(cfg, dev, init_state, images, gt, draws, errs)
+
+    # overfit one batch: BASE_LR 0.01, no warm-up, global-norm clip 1.0
+    cfg_fit = cfg.clone()
+    cfg_fit.SOLVER.BASE_LR = 0.01
+    cfg_fit.SOLVER.WARMUP_ITERS = 0
+    cfg_fit.SOLVER.WARMUP_FACTOR = 1.0
+    cfg_fit.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg_fit.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg_fit.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model, opt, sched, step = build_trainer(cfg_fit, dev, init_state)
+    counts.clear()
+    metrics_seen.clear()
+    _kernels.reset_launch_counts()
+    train_loop(step, itertools.repeat(batches[0]), device=dev, start_iter=0,
+               max_iter=overfit, generator=gen, log_every=10 ** 9,
+               after_step=after_step, log=log)
+    read_launches(overfit, "overfit")
+    losses = [check_losses(m, f"overfit step {i + 1}")["total_loss"]
+              for i, m in enumerate(metrics_seen)]
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  overfit, {overfit} bf16 steps on one batch (BASE_LR 0.01, no "
+        f"warm-up, global-norm clip 1.0): total loss "
+        + " ".join(f"{v:.3f}" for v in losses)
+        + f"; mean of the first 5 {head:.4f}, of the last 5 {tail:.4f}")
+    if not tail < head:
+        raise AssertionError(f"overfit: loss did not fall ({head} -> {tail})")
+
+    # checkpoint round trip: every tensor back, and the next step equal
+    with tempfile.TemporaryDirectory() as root:
+        path = save_checkpoint(root, train_state(model, opt, sched, overfit),
+                               overfit)
+        state = load_checkpoint(path)
+
+        def buffers(o):
+            return [t for st in o.state.values() for t in st.values()
+                    if torch.is_tensor(t)]
+
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        momentum = [t.clone() for t in buffers(opt)]
+        epoch = sched.last_epoch
+        ref = check_losses(step(images, gt, draws), "step before reload")
+        ref_delta = {k: model.state_dict()[k] - before[k] for k in before}
+        model2, opt2, sched2, step2 = build_trainer(cfg_fit, dev)
+        if restore_train_state(state, model2, opt2, sched2) != overfit:
+            raise AssertionError("checkpoint: step lost")
+        restored = buffers(opt2)
+        same = all(torch.equal(a, b) for a, b in zip(
+            model2.state_dict().values(), before.values())) and \
+            len(restored) == len(momentum) > 0 and \
+            all(torch.equal(a, b) for a, b in zip(restored, momentum)) and \
+            sched2.last_epoch == epoch
+        again = check_losses(step2(images, gt, draws), "step after reload")
+    delta = {k: model2.state_dict()[k] - before[k] for k in before}
+    rel = max(float((delta[k] - ref_delta[k]).norm())
+              / max(float(ref_delta[k].norm()), 1e-30)
+              for k in delta if ref_delta[k].is_floating_point()
+              and float(ref_delta[k].norm()) > 0)
+    if not same or again != ref or rel > 1e-2:
+        raise AssertionError(f"checkpoint round trip: state equal {same}, "
+                             f"losses {ref} vs {again}, update rel {rel}")
+    log(f"  checkpoint round trip on the card ({len(before)} model tensors, "
+        f"momentum, schedule): state bit-equal; the step after reload gives "
+        f"the same losses (total {again['total_loss']:.6f}) and an update "
+        f"within {rel:.2e} of the step without it (kernel 2b's atomics "
+        f"reorder its sums)")
+    del model, model2, opt, opt2
+    torch.cuda.empty_cache()
+    return totals, errs, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1266,7 +1818,7 @@ def main() -> int:
         f"devices {torch.cuda.device_count()}")
 
     secs = _kernels.build()
-    log(f"[build] both kernels built in {secs:.1f} s")
+    log(f"[build] both sources (kernels 1, 2 and 2b) built in {secs:.1f} s")
     for name, text in _kernels.build_logs().items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1326,16 +1878,27 @@ def main() -> int:
     log("[eval] evaluate_dataset over a synthetic COCO set, serving model "
         "in bf16")
     eval_launches = eval_phase(dev, s2d_model)
+    del s2d_model, models
+    torch.cuda.empty_cache()
 
-    for row in (nms, roi):
-        row["launches"] = sum(c[row["name"]] for c in (
-            launches, serving_launches, per_level, eval_launches))
+    log(f"[train] zy_model_config.yaml at full width in bf16, random weights "
+        f"(seed 0), {FIXED}x{FIXED}, B={TRAIN_BATCH}, through train_loop "
+        f"({card})")
+    train_launches, train_errs, bwd = train_phase(dev, flagship_cfg())
+    nms["max_abs_err"] = max(nms["max_abs_err"], train_errs["nms"])
+    roi["max_abs_err"] = max(roi["max_abs_err"], train_errs["roi_align"])
+    bwd["max_abs_err"] = train_errs["roi_align_backward"]
+
+    for row in (nms, roi, bwd):
+        row["launches"] = sum(c.get(row["name"], 0) for c in (
+            launches, serving_launches, per_level, eval_launches,
+            train_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                for r in (nms, roi)]}))
+                                for r in (nms, roi, bwd)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

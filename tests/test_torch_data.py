@@ -244,3 +244,102 @@ def test_coco_dataset_fields_equal(tmp_path):
         assert dict(got.img_to_anns) == dict(want.img_to_anns)
         assert [got.image_path(i) for i in got.ids] == \
             [want.image_path(i) for i in want.ids]
+
+
+# ------------------------------------------------------------- training
+def make_train_dataset(root, seed: int = 0):
+    """A synthetic COCO training set: PNG images of both orientations
+    and, per image, three polygon instances (a rectangle, a triangle, a
+    hexagon) over three categories, one degenerate box, one crowd
+    region. Returns (annotation json path, image root)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    shapes = [(60, 80), (80, 60), (64, 64), (50, 70), (70, 50), (58, 90)]
+    for i, (h, w) in enumerate(shapes, 1):
+        Image.fromarray(_img(rng, h, w)).save(root / f"{i}.png")
+        images.append({"id": i, "file_name": f"{i}.png", "height": h,
+                       "width": w})
+        for j, pts in enumerate(([(0, 0), (1, 0), (1, 1), (0, 1)],
+                                 [(0, 1), (0.5, 0), (1, 1)],
+                                 [(0.25, 0), (0.75, 0), (1, 0.5),
+                                  (0.75, 1), (0.25, 1), (0, 0.5)])):
+            bw, bh = 8 + rng.rand(2) * 24
+            x0, y0 = rng.rand() * (w - bw - 1), rng.rand() * (h - bh - 1)
+            poly = [float(v) for px, py in pts
+                    for v in (x0 + px * bw, y0 + py * bh)]
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": (1, 3, 7)[j],
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh,
+                         "iscrowd": 0, "segmentation": [poly]})
+    anns.append({"id": len(anns) + 1, "image_id": 1, "category_id": 1,
+                 "bbox": [5.0, 5.0, 0.0, 4.0], "area": 0.0, "iscrowd": 0,
+                 "segmentation": []})  # zero width: skipped
+    anns.append({"id": len(anns) + 1, "image_id": 2, "category_id": 3,
+                 "bbox": [0.0, 0.0, 20.0, 20.0], "area": 400.0,
+                 "iscrowd": 1, "segmentation": []})
+    ann = root / "ann.json"
+    ann.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": c, "name": f"c{c}"} for c in (1, 3, 7)]}))
+    return str(ann), str(root)
+
+
+@pytest.mark.parametrize("tight_pad,sampling,workers", [
+    (False, "choice", 0), (True, "range", 2)])
+def test_train_batches_equal(tmp_path, tight_pad, sampling, workers):
+    """``train_batches`` equals the JAX loader batch for batch over two
+    epochs at one seed: multi-scale draws, flips, tight canvases,
+    rasterized mask patches."""
+    ann, root = make_train_dataset(tmp_path / "ds")
+    kw = dict(min_sizes=(40, 48, 56), max_size=72, pad_to=(96, 96),
+              max_gt=4, patch_size=28, seed=3, epochs=2, sampling=sampling,
+              workers=workers, tight_pad=tight_pad)
+    want = list(jcoco.train_batches(jcoco.CocoDataset(ann, root), 2, **kw))
+    got = list(tcoco.train_batches(tcoco.CocoDataset(ann, root), 2, **kw))
+    assert len(got) == len(want) == 6
+    canvases = set()
+    for a, b in zip(got, want):
+        assert set(a) == set(b)
+        assert a["image_ids"] == b["image_ids"]
+        for k in tcoco.BATCH_KEYS:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        canvases.add(a["image"].shape[1:3])
+        assert a["gt_mask_patches"][a["gt_valid"]].max() == 1.0
+    assert len(canvases) > 1 if tight_pad else canvases == {(96, 96)}
+
+
+def test_train_example_reads_through_read_image(tmp_path):
+    """``load_train_example`` reads each image through ``read_image``
+    (path -> BGR array), the default being the PIL reader."""
+    from centermask2_tpu_torch.data.preprocess import read_image_bgr
+
+    ann, root = make_train_dataset(tmp_path / "ds")
+    ds = tcoco.CocoDataset(ann, root)
+    arrays = {}
+
+    def reader(path):
+        arrays[path] = read_image_bgr(path)
+        return arrays[path]
+
+    kw = dict(short_edge=48, max_size=72, pad_to=(96, 96), max_gt=4,
+              patch_size=28, hflip=True)
+    a = tcoco.load_train_example(ds, 2, read_image=reader, **kw)
+    b = tcoco.load_train_example(ds, 2, **kw)
+    assert list(arrays) == [ds.image_path(2)]
+    for k in tcoco.BATCH_KEYS:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_rasterizers_equal():
+    rng = np.random.RandomState(4)
+    polys = [list(rng.rand(12) * 40), list(rng.rand(8) * 40 + 5)]
+    np.testing.assert_array_equal(tcoco.rasterize_polygons(polys, 48, 50),
+                                  jcoco.rasterize_polygons(polys, 48, 50))
+    box = np.array([3.5, 2.0, 41.0, 37.5], np.float32)
+    np.testing.assert_array_equal(
+        tcoco.mask_patch_from_polygons(polys, box, 28),
+        jcoco.mask_patch_from_polygons(polys, box, 28))

@@ -177,7 +177,9 @@ def test_build_on_cpu_runs_bf16_inference():
 @pytest.mark.parametrize("key,value", [
     ("TPU.POOLER_SAMPLING_RATIO", 0),
     ("MODEL.KEYPOINT_ON", True), ("MODEL.VOVNET.CONV_BODY", "V-19-slim-dw-eSE"),
-    ("MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone")])
+    ("MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone"),
+    ("TPU.REMAT_BACKBONE", True), ("MODEL.VOVNET.NORM", "BN"),
+    ("MODEL.VOVNET.NORM", "SyncBN")])
 def test_unported_options_raise(key, value):
     cfg = _small_cfg()
     cfg.merge_from_list([key, str(value)])
