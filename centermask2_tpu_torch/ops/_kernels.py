@@ -39,6 +39,7 @@ EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": []}
 
 MAX_NMS_N = 8192
 MAX_ROI_SAMPLES = 64  # kMaxSamples in csrc/roi_align.cu: o * s per axis
+ROI_AXES_BYTES = 2176  # sizeof(RoiAxes) in csrc/roi_align.cu
 
 nms_launches = 0
 roi_align_launches = 0
@@ -136,8 +137,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cm2_roi_align.restype = ci
         lib.cm2_roi_align_backward.argtypes = [
             ci, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci,
-            vp, ctypes.c_longlong, vp, vp]
+            vp, vp, vp, vp, vp]
         lib.cm2_roi_align_backward.restype = ci
+        lib.cm2_roi_tap_windows.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp,
+                                            ci, ci, ci, ci, vp, vp]
+        lib.cm2_roi_tap_windows.restype = ci
     return lib
 
 
@@ -250,6 +254,38 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     return out
 
 
+def _roi_bwd_args(what: str, boxes: torch.Tensor,
+                  batch_indices: torch.Tensor, levels: torch.Tensor,
+                  shapes: Sequence[Sequence[int]], scales: Sequence[float],
+                  output_size: int, sampling_ratio: int):
+    """Checks kernel 2b's ROI arguments; returns the device, the level
+    shapes as int tuples, R and the host arrays of heights, widths and
+    scales."""
+    if output_size * sampling_ratio > MAX_ROI_SAMPLES or sampling_ratio <= 0:
+        raise ValueError(f"{what}: output_size * sampling_ratio "
+                         f"= {output_size * sampling_ratio} outside the "
+                         f"kernel's 1..{MAX_ROI_SAMPLES} samples per axis")
+    dev = _require_cuda(what, boxes, batch_indices, levels)
+    shapes = [tuple(int(v) for v in shp) for shp in shapes]
+    N, C = shapes[0][:2]
+    if any(len(shp) != 4 or shp[:2] != (N, C) or min(shp) <= 0
+           for shp in shapes) or len(shapes) != len(scales):
+        raise ValueError(f"{what}: levels must be nonempty (N, C, H, W) "
+                         "alike in N, C, one scale each")
+    R = boxes.shape[0]
+    if boxes.dtype != torch.float32 or tuple(boxes.shape) != (R, 4):
+        raise ValueError(f"{what}: boxes {tuple(boxes.shape)} must be (R, 4) "
+                         "f32")
+    if batch_indices.dtype != torch.int32 or levels.dtype != torch.int32 or \
+            batch_indices.shape != (R,) or levels.shape != (R,):
+        raise ValueError(f"{what}: batch_indices/levels must be (R,) int32")
+    L = len(shapes)
+    hs = (ctypes.c_int * L)(*[shp[2] for shp in shapes])
+    ws = (ctypes.c_int * L)(*[shp[3] for shp in shapes])
+    sc = (ctypes.c_float * L)(*[float(s) for s in scales])
+    return dev, shapes, R, hs, ws, sc
+
+
 def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
                        batch_indices: torch.Tensor, levels: torch.Tensor,
                        shapes: Sequence[Sequence[int]], dtype: torch.dtype,
@@ -258,44 +294,30 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
                        aligned: bool) -> List[torch.Tensor]:
     """Kernel 2b (csrc/roi_align.cu): the feature gradient of kernel 2.
     grad (R, C, o, o) in ``dtype`` (f32 or bf16); returns one (N, C, Hl,
-    Wl) gradient per level of ``shapes`` in ``dtype``. One f32 scratch
-    holds every level (zeroed on the stream by the C entry); f32 levels
-    are views of it, bf16 levels views of its cast."""
+    Wl) gradient per level of ``shapes`` in ``dtype``, views of one
+    buffer that the kernel writes once (no zeroing, no scratch). The
+    prepass's tables are allocated here: tap windows (R, 6) int32, axis
+    tables (R, ROI_AXES_BYTES) uint8 and a nonzero flag per ROI (R,)
+    uint8."""
     global roi_align_backward_launches
-    if output_size * sampling_ratio > MAX_ROI_SAMPLES or sampling_ratio <= 0:
-        raise ValueError(f"roi_align_backward: output_size * sampling_ratio "
-                         f"= {output_size * sampling_ratio} outside the "
-                         f"kernel's 1..{MAX_ROI_SAMPLES} samples per axis")
-    dev = _require_cuda("roi_align_backward", grad, boxes, batch_indices,
-                        levels)
+    dev, shapes, R, hs, ws, sc = _roi_bwd_args(
+        "roi_align_backward", boxes, batch_indices, levels, shapes, scales,
+        output_size, sampling_ratio)
+    _require_cuda("roi_align_backward", grad, boxes)
+    N, C = shapes[0][:2]
     if dtype not in _ROI_DTYPES or grad.dtype != dtype:
         raise ValueError(f"roi_align_backward: grad {grad.dtype} must be the "
                          f"features' dtype {dtype}, f32 or bf16")
-    shapes = [tuple(int(v) for v in shp) for shp in shapes]
-    N, C = shapes[0][:2]
-    if any(len(shp) != 4 or shp[:2] != (N, C) for shp in shapes) or \
-            len(shapes) != len(scales):
-        raise ValueError("roi_align_backward: levels must be (N, C, H, W) "
-                         "alike in N, C, one scale each")
-    R = boxes.shape[0]
-    if boxes.dtype != torch.float32 or tuple(boxes.shape) != (R, 4) or \
-            tuple(grad.shape) != (R, C, output_size, output_size):
-        raise ValueError(f"roi_align_backward: boxes {tuple(boxes.shape)}, "
-                         f"grad {tuple(grad.shape)}")
-    if batch_indices.dtype != torch.int32 or levels.dtype != torch.int32 or \
-            batch_indices.shape != (R,) or levels.shape != (R,):
-        raise ValueError("roi_align_backward: batch_indices/levels must be "
-                         "(R,) int32")
+    if tuple(grad.shape) != (R, C, output_size, output_size):
+        raise ValueError(f"roi_align_backward: grad {tuple(grad.shape)} for "
+                         f"{R} ROIs, {C} channels")
     L = len(shapes)
     sizes = [N * C * h * w for _, _, h, w in shapes]
     offsets = [sum(sizes[:i]) for i in range(L)]
-    total = sum(sizes)
-    scratch = torch.empty(total, dtype=torch.float32, device=dev)
-    out = scratch if dtype == torch.float32 else \
-        torch.empty(total, dtype=dtype, device=dev)
-    hs = (ctypes.c_int * L)(*[shp[2] for shp in shapes])
-    ws = (ctypes.c_int * L)(*[shp[3] for shp in shapes])
-    sc = (ctypes.c_float * L)(*[float(s) for s in scales])
+    out = torch.empty(sum(sizes), dtype=dtype, device=dev)
+    windows = torch.empty((R, 6), dtype=torch.int32, device=dev)
+    axes = torch.empty((R, ROI_AXES_BYTES), dtype=torch.uint8, device=dev)
+    flags = torch.empty(R, dtype=torch.uint8, device=dev)
     offs = (ctypes.c_longlong * L)(*offsets)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib("roi_align").cm2_roi_align_backward(
@@ -304,9 +326,33 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor,
         ctypes.cast(sc, ctypes.c_void_p), ctypes.cast(offs, ctypes.c_void_p),
         L, N, C, boxes.data_ptr(), batch_indices.data_ptr(),
         levels.data_ptr(), R, output_size, sampling_ratio, int(aligned),
-        scratch.data_ptr(), total,
-        out.data_ptr() if dtype != torch.float32 else None, stream)
+        *(t.data_ptr() if R else None for t in (windows, axes, flags)),
+        out.data_ptr(), stream)
     _check(rc, "cm2_roi_align_backward")
     roi_align_backward_launches += 1
     return [out[o:o + n].view(shp)
             for o, n, shp in zip(offsets, sizes, shapes)]
+
+
+def roi_tap_windows(boxes: torch.Tensor, batch_indices: torch.Tensor,
+                    levels: torch.Tensor, shapes: Sequence[Sequence[int]],
+                    scales: Sequence[float], output_size: int,
+                    sampling_ratio: int, aligned: bool) -> torch.Tensor:
+    """Kernel 2b's prepass alone, to check its table against
+    ``ops/roi_align.py::roi_tap_windows``: (R, 6) int32 rows (level,
+    image, first row, last row, first column, last column). Not a launch
+    of kernel 2b: the count stays."""
+    dev, shapes, R, hs, ws, sc = _roi_bwd_args(
+        "roi_tap_windows", boxes, batch_indices, levels, shapes, scales,
+        output_size, sampling_ratio)
+    windows = torch.empty((R, 6), dtype=torch.int32, device=dev)
+    if R == 0:
+        return windows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib("roi_align").cm2_roi_tap_windows(
+        ctypes.cast(hs, ctypes.c_void_p), ctypes.cast(ws, ctypes.c_void_p),
+        ctypes.cast(sc, ctypes.c_void_p), len(shapes), shapes[0][0],
+        boxes.data_ptr(), batch_indices.data_ptr(), levels.data_ptr(), R,
+        output_size, sampling_ratio, int(aligned), windows.data_ptr(), stream)
+    _check(rc, "cm2_roi_tap_windows")
+    return windows

@@ -8,8 +8,11 @@ level, (N, C, Hl, Wl); the output is (R, C, o, o).
 - On CUDA tensors the forward is kernel 2 (``csrc/roi_align.cu`` via
   ``_kernels``): level pick, sample coordinates, bilinear taps and the
   s x s bin mean in one launch; the backward is kernel 2b in the same
-  source, which scatters each output gradient into the 4 taps of every
-  sample with f32 atomics and casts the sums to the features' dtype.
+  source, a gather: a prepass writes each ROI's tap window
+  (``roi_tap_windows`` is its CPU oracle), then each level pixel is
+  summed over the ROIs whose windows reach it, in ROI order, by one
+  thread at a time, and written once in the features' dtype (no
+  atomics: the gradient is the same on every run).
 - On CPU tensors the forward is the plain version
   ``multilevel_roi_align_plain``, which follows the JAX
   ``_multilevel_impl`` (``roi_align.py:251-291``): one (S, 4C) table of
@@ -232,6 +235,56 @@ def roi_align_feature_grad_plain(
         out.append(d.reshape(C, N, H, W).transpose(0, 1).to(dtype)
                    .contiguous())
     return out
+
+
+def roi_tap_windows(
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    levels: torch.Tensor,
+    shapes: Sequence[Tuple[int, int, int, int]],  # per level (N, C, H, W)
+    scales: Sequence[float],
+    output_size: int,
+    sampling_ratio: int = 2,
+    aligned: bool = True,
+) -> torch.Tensor:
+    """The table of kernel 2b's prepass, computed the same way: (R, 6)
+    int32 rows (level, image, first row, last row, first column, last
+    column). Level and image are clamped as kernel 2 clamps them; the
+    window spans the low and high taps of the in-range samples of each
+    axis, and is (0, -1, 0, -1) where an axis has no sample in range. Every
+    pixel that the ROI's gradient reaches lies inside its window."""
+    L = len(shapes)
+    R = boxes.shape[0]
+    lv = torch.clamp(levels.long(), 0, L - 1)
+    img = torch.clamp(batch_indices.long(), 0, shapes[0][0] - 1)
+    scale_r = torch.full((R,), float(scales[0]), device=boxes.device)
+    h_r = torch.full((R,), float(shapes[0][2]), device=boxes.device)
+    w_r = torch.full((R,), float(shapes[0][3]), device=boxes.device)
+    for i in range(1, L):
+        on = lv == i
+        scale_r = scale_r.masked_fill(on, float(scales[i]))
+        h_r = h_r.masked_fill(on, float(shapes[i][2]))
+        w_r = w_r.masked_fill(on, float(shapes[i][3]))
+    ys, xs = _axis_coords(boxes.float(), scale_r, output_size,
+                          sampling_ratio, aligned)
+
+    def span(coords, size):
+        size = size[:, None]
+        ok = (coords >= -1.0) & (coords <= size)
+        low = torch.minimum(torch.floor(torch.clamp_min(coords, 0.0)),
+                           size - 1.0)
+        high = torch.minimum(low + 1.0, size - 1.0)
+        first = torch.where(ok, low, torch.inf).amin(dim=1)
+        last = torch.where(ok, high, -1.0).amax(dim=1)
+        return first, last, ok.any(dim=1)
+
+    y0, y1, oky = span(ys, h_r)
+    x0, x1, okx = span(xs, w_r)
+    some = oky & okx
+    zero = torch.zeros_like(y0)
+    cols = [lv, img] + [torch.where(some, v, e).long() for v, e in (
+        (y0, zero), (y1, zero - 1), (x0, zero), (x1, zero - 1))]
+    return torch.stack(cols, dim=1).to(torch.int32)
 
 
 def _forward(features, boxes, batch_indices, levels, scales, output_size,

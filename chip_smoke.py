@@ -69,7 +69,12 @@ times the kernels and the end-to-end latency. Phases, in order:
             ms per step (CUDA events, median and quartiles after warm-up),
             images per second, peak memory, the profiler's top kernels of
             one step; the three kernels against their plain versions on
-            the inputs captured from a bf16 and an f32 step; the f32 step
+            the inputs captured from a bf16 and an f32 step; kernel 2b
+            also on synthetic P3-P5 inputs (R = 0, ROIs outside the image,
+            stacked tiny boxes, ROIs all on P5, C = 200, (o, s) = (7, 2),
+            (14, 1), (5, 3)), each time launched twice with bit-equal
+            results and its prepass table equal to the CPU oracle's; the
+            f32 step
             (TF32 off, deterministic cuDNN) through the kernels against
             the same step through the plain versions: losses equal,
             every gradient within 4x its noise floor; 20 bf16 steps on one
@@ -120,9 +125,10 @@ ROI_BF16_RTOL = 2.0 ** -7  # both sides round an f32 sum to bf16: <= 1 ulp
 ROI_BF16_ATOL = 1e-6
 E2E_TOL = {"scores": (1e-6, 1e-5), "pred_boxes": (1e-6, 1e-4),
            "pred_masks": (0.0, 1e-4), "mask_scores": (1e-3, 1e-4)}
-# kernel 2b against the plain VJP: its f32 atomics add in an order that
-# changes from run to run, so f32 is held to 1e-5 of the largest plain
-# value and bf16 to one bf16 ulp of each value plus that f32 term
+# kernel 2b against the plain VJP: both sum in f32, each in its own fixed
+# order (the kernel pixel by pixel over the ROIs, the plain version in
+# einsum order), so f32 is held to 1e-5 of the largest plain value and
+# bf16 to one bf16 ulp of each value plus that f32 term
 ROI_BWD_REL = 1e-5
 # the f32 train step through the kernels against the plain versions:
 # every gradient within this factor of its noise floor
@@ -1396,16 +1402,31 @@ def capture_step_inputs(run) -> dict:
 
 
 def roi_bwd_case(args, what: str) -> float:
-    """Kernel 2b against the plain VJP on one input (tolerance above).
-    Raises outside it; returns the max abs error."""
+    """Kernel 2b against the plain VJP on one input (tolerance above);
+    two launches bit-equal; its prepass table of tap windows equal to the
+    CPU oracle's (``ops/roi_align.py::roi_tap_windows``). Raises
+    otherwise; returns the max abs error."""
     from centermask2_tpu_torch.ops import _kernels
-    from centermask2_tpu_torch.ops.roi_align import \
-        roi_align_feature_grad_plain
+    from centermask2_tpu_torch.ops.roi_align import (
+        roi_align_feature_grad_plain, roi_tap_windows)
 
+    grad, boxes, bidx, levels, shapes, dtype, scales, o, s, aligned = args
     k = _kernels.roi_align_backward(*args)
+    again = _kernels.roi_align_backward(*args)
     p = roi_align_feature_grad_plain(*args)
+    win = _kernels.roi_tap_windows(boxes, bidx, levels, shapes, scales, o, s,
+                                   aligned)
     torch.cuda.synchronize()
-    dtype = args[5]
+    want = roi_tap_windows(boxes.cpu(), bidx.cpu(), levels.cpu(), shapes,
+                           scales, o, s, aligned)
+    if not torch.equal(win.cpu(), want):
+        bad = (win.cpu() != want).any(dim=1).nonzero().flatten()[:4].tolist()
+        raise AssertionError(f"roi_align_backward {what}: prepass windows of "
+                             f"ROIs {bad} differ from the CPU oracle's: "
+                             f"{win[bad].tolist()} vs {want[bad].tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(k, again)):
+        raise AssertionError(f"roi_align_backward {what}: two launches on "
+                             f"the same input differ")
     scale = max(float(t.float().abs().max()) for t in p)
     worst, bad = 0.0, []
     for lvl, (a, b) in enumerate(zip(k, p)):
@@ -1423,44 +1444,88 @@ def roi_bwd_case(args, what: str) -> float:
             bad.append(lvl)
     tol_s = (f"{ROI_BWD_REL} x max|plain|" if dtype == torch.float32 else
              f"1 bf16 ulp + {ROI_BWD_REL} x max|plain|")
-    log(f"  roi_align_backward {what}: {str(dtype)[6:]} R={args[0].shape[0]} "
-        f"C={args[0].shape[1]}, levels {[tuple(t.shape[2:]) for t in p]}: "
-        f"max abs err {worst:.3e}, max |plain| {scale:.3e} (tolerance "
-        f"{tol_s})")
+    log(f"  roi_align_backward {what}: {str(dtype)[6:]} R={grad.shape[0]} "
+        f"C={grad.shape[1]} o={o} s={s}, levels "
+        f"{[tuple(t.shape[2:]) for t in p]}: max abs err {worst:.3e}, max "
+        f"|plain| {scale:.3e} (tolerance {tol_s}); two launches bit-equal; "
+        f"prepass windows equal to the CPU oracle's "
+        f"({int((want[:, 2] <= want[:, 3]).sum())} nonempty)")
     if bad:
         raise AssertionError(f"roi_align_backward {what}: levels {bad} "
                              f"outside {tol_s}")
     return worst
 
 
+# (boxes, C, o, s) of kernel 2b's synthetic checks on P3-P5 of the
+# training canvas, C None the step's: "mixed" are roi_inputs' boxes over
+# the three levels (the step's ROIs all land on P3), "P5" every ROI on P5,
+# "none" R = 0, "outside" every ROI outside the canvas, "stacked" 1.25 R + 1
+# copies of one 3x3 px box of one image (every ROI in one tile's list, in
+# two rounds of the kernel's list at R = 256); C = 200 leaves a ragged
+# channel group
+ROI_BWD_CASES = (("mixed", None, 14, 2), ("P5", None, 14, 2),
+                 ("none", None, 14, 2), ("outside", None, 14, 2),
+                 ("stacked", None, 14, 2), ("mixed", 200, 7, 2),
+                 ("mixed", 200, 14, 1), ("mixed", None, 5, 3))
+
+
+def roi_bwd_boxes(rng, kind: str, fixed: int, batch: int, R: int, C: int,
+                  dev):
+    """Boxes and image indices of one ``ROI_BWD_CASES`` kind; "mixed"
+    and "P5" draw ``roi_inputs``' features too (unused), so that their
+    boxes and gradients stay those of the earlier versions of this
+    check, for comparisons across versions."""
+    bidx = (torch.arange(R, device=dev) % batch).to(torch.int32)
+    if kind in ("mixed", "P5"):
+        return roi_inputs(rng, fixed, fixed, R, C, batch, dev,
+                          kind == "P5")[1], bidx
+    if kind == "none":
+        boxes, bidx = np.zeros((0, 4)), bidx[:0]
+    elif kind == "outside":  # right of the canvas, or above and left
+        x = rng.rand(R) * fixed / 4
+        boxes = np.stack([fixed + 40.0 + x, x, fixed + 140.0 + x,
+                          100.0 + x], 1)
+        boxes[::2] = [-200.0, -150.0, -60.0, -50.0]
+    else:  # more than kernel 2b's 256 ROIs a round: two rounds
+        x, y = 0.3 * fixed, 0.22 * fixed
+        n = R + R // 4 + 1
+        boxes = np.tile([[x, y, x + 3.0, y + 3.0]], (n, 1))
+        bidx = torch.zeros(n, dtype=torch.int32, device=dev)
+    return torch.from_numpy(boxes.astype(np.float32)).to(dev), bidx
+
+
 def check_roi_bwd_synthetic(dev, fixed: int, batch: int, R: int, C: int,
                             errs: dict, timing: bool) -> None:
-    """Kernel 2b against the plain VJP on P3-P5 of the training canvas at
-    the step's R and C, f32 and bf16, with ROIs on every level (the
-    served and trained random-weight ROIs all land on P3): the synthetic
-    boxes of ``[kernels]`` (timed with ``timing``), then ROIs all on
-    P5."""
+    """Kernel 2b against the plain VJP over ``ROI_BWD_CASES`` on P3-P5 of
+    the training canvas at the step's R and C, f32 and bf16 (each also
+    launched twice and its windows held, as ``roi_bwd_case`` does). With
+    ``timing``, "mixed" at the step's shapes is timed in both dtypes,
+    "stacked" and "none" (every tile empty: the cost of the zeros) in
+    bf16."""
     from centermask2_tpu_torch.ops import assign_boxes_by_ratio
     from centermask2_tpu_torch.structures import boxes as box_ops
 
     rng = np.random.RandomState(2)
     scales = (1 / 8, 1 / 16, 1 / 32)
-    for large in (False, True):
-        feats, boxes = roi_inputs(rng, fixed, fixed, R, C, batch, dev, large)
+    for kind, c, o, s in ROI_BWD_CASES:
+        c = C if c is None else c
+        boxes, bidx = roi_bwd_boxes(rng, kind, fixed, batch, R, c, dev)
+        n = boxes.shape[0]
         levels = assign_boxes_by_ratio(
-            box_ops.area(boxes), torch.full((R,), float(fixed * fixed),
+            box_ops.area(boxes), torch.full((n,), float(fixed * fixed),
                                             device=dev), 3, 5)
-        bidx = (torch.arange(R, device=dev) % batch).to(torch.int32)
+        shapes = [(batch, c, fixed // st, fixed // st) for st in (8, 16, 32)]
         grad = torch.from_numpy(
-            rng.randn(R, C, 14, 14).astype(np.float32)).to(dev)
+            rng.randn(n, c, o, o).astype(np.float32)).to(dev)
+        what = f"synthetic {kind} ROIs, levels {sorted(set(levels.tolist()))}"
         for dt in (torch.float32, torch.bfloat16):
-            args = (grad.to(dt), boxes, bidx, levels,
-                    [tuple(f.shape) for f in feats], dt, scales, 14, 2, True)
-            what = f"synthetic {'P5 ' if large else ''}ROIs, levels " \
-                f"{sorted(set(levels.tolist()))}"
+            args = (grad.to(dt), boxes, bidx, levels, shapes, dt, scales, o,
+                    s, True)
             errs["roi_align_backward"] = max(errs["roi_align_backward"],
                                              roi_bwd_case(args, what))
-            if timing and not large:
+            main = (c, o, s) == (C, 14, 2)
+            if timing and main and (kind == "mixed" or (
+                    kind in ("stacked", "none") and dt != torch.float32)):
                 roi_bwd_row(args, what)
 
 
@@ -1480,10 +1545,11 @@ def check_step_kernels(seen, what: str, errs: dict) -> None:
 def roi_bwd_row(args, what: str) -> dict:
     """Median times of kernel 2b and the plain VJP on one input, and the
     bound: the gradient read and the level gradients written (bytes), or
-    two flops a tap of every in-range sample (operations)."""
+    two flops a tap of every in-range sample (operations). Beside it the
+    kernel's own traffic, counted from its design."""
     from centermask2_tpu_torch.ops import _kernels
     from centermask2_tpu_torch.ops.roi_align import (
-        _axis_coords, roi_align_feature_grad_plain)
+        _axis_coords, roi_align_feature_grad_plain, roi_tap_windows)
 
     grad, boxes, bidx, levels, shapes, dtype, scales, o, s, aligned = args
     ms = time_gpu_ms(lambda: _kernels.roi_align_backward(*args))
@@ -1505,13 +1571,31 @@ def roi_bwd_row(args, what: str) -> dict:
     bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
     by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
         "operations"
-    own = (level_elems * 4 * 3 + grad.numel() * elt
-           + (level_elems * elt if dtype != torch.float32 else 0))
+    # the design's own traffic: the prepass reads g once and writes its
+    # tables (window, axis tables, a nonzero flag); every block tests the
+    # R windows and flags; each (block, ROI) pair whose window reaches the
+    # block's 16 x 32 tile, for a ROI whose g is not all zero, stages the
+    # ROI's axis tables and the g slice of the block's 8 channels
+    win = roi_tap_windows(boxes.cpu(), bidx.cpu(), levels.cpu(), shapes,
+                          scales, o, s, aligned).long()
+    tiles = torch.where(win[:, 2] <= win[:, 3],
+                        (win[:, 3] // 16 - win[:, 2] // 16 + 1)
+                        * (win[:, 5] // 32 - win[:, 4] // 32 + 1), 0)
+    groups = -(-C // 8)
+    nz = (grad.reshape(R, C * o * o) != 0).any(dim=1).cpu()
+    staged = int((tiles * nz).sum()) * groups
+    blocks = sum(shp[0] * -(-shp[2] // 16) * -(-shp[3] // 32)
+                 for shp in shapes) * groups
+    g_reads = staged * 8 * o * o * elt
+    tables = R * (24 + 2176 + 1) + blocks * R * 25 + staged * 2176
+    own = level_elems * elt + grad.numel() * elt + g_reads + tables
     log(f"  roi_align_backward {what}: {str(dtype)[6:]} R={R} C={C}, "
-        f"{samples} in-range samples, {C * samples * 4} atomic adds; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}: "
-        f"{nbytes} bytes, {flops} flops); the kernel's own traffic (scratch "
-        f"zeroed, added to, read by the cast) is {own} bytes, "
+        f"{samples} in-range samples, {staged} staged (block, ROI) pairs; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
+        f"({by}: {nbytes} bytes, {flops} flops); the kernel's own traffic is "
+        f"{own} bytes ({level_elems * elt} written once, "
+        f"{grad.numel() * elt} of g read by the prepass, {g_reads} of g "
+        f"staged by the blocks, {tables} of tables and tests, mostly L2), "
         f"{own / PEAK_BYTES_S * 1e3:.6f} ms at the peak rate")
     return {"name": "roi_align_backward", "route": "cuda",
             "source": ROI_SOURCE, "replaces": ROI_BWD_REPLACES, "ms": ms,
@@ -1535,8 +1619,10 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
     against the same step through the plain versions: the losses equal,
     every parameter gradient within GRAD_NOISE_FACTOR x its noise floor,
     the larger of the two plain runs' difference, the two kernel runs'
-    difference (kernel 2b's atomics) and 1e-6 of the tensor's largest
-    value. The kernels are held against their plain versions on the
+    difference and 1e-6 of the tensor's largest value. Kernel 2b sums in
+    a fixed order, so the kernel-run term is now zero unless another op
+    of the step is not deterministic; the log gives it and the worst
+    ratio. The kernels are held against their plain versions on the
     step's captured inputs."""
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
@@ -1570,11 +1656,15 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
         f"{k} {float(lk[k]):.6f} (diff {float(lk[k] - lp[k]):.1e})"
         for k in lk))
     worst_ratio, worst_name, floors = 0.0, "", []
+    runs_diff = {"plain": 0.0, "kernel": 0.0}
     for name, g in gk.items():
         p1, p2, k2 = gp[name], runs["p2"][1][name], runs["k2"][1][name]
         top = float(p1.abs().max())
-        floor = max(float((p1 - p2).abs().max()),
-                    float((g - k2).abs().max()), 1e-6 * top, 1e-30)
+        d_plain = float((p1 - p2).abs().max())
+        d_kernel = float((g - k2).abs().max())
+        runs_diff["plain"] = max(runs_diff["plain"], d_plain)
+        runs_diff["kernel"] = max(runs_diff["kernel"], d_kernel)
+        floor = max(d_plain, d_kernel, 1e-6 * top, 1e-30)
         ratio = float((g - p1).abs().max()) / floor
         if top > 0:
             floors.append(floor / top)
@@ -1586,7 +1676,10 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
     log(f"  f32 train step, kernels vs plain: {len(gk)} parameter gradients, "
         f"worst {worst_ratio:.2f} x its noise floor ({worst_name}); floors "
         f"{min(floors):.1e}-{max(floors):.1e} of each tensor's max "
-        f"(tolerance {GRAD_NOISE_FACTOR} x)")
+        f"(tolerance {GRAD_NOISE_FACTOR} x); largest difference between the "
+        f"two kernel runs {runs_diff['kernel']:.1e} (the floor's kernel-run "
+        f"term; 0 = bit-equal), between the two plain runs "
+        f"{runs_diff['plain']:.1e}")
     del model, runs
     torch.cuda.empty_cache()
 
@@ -1618,7 +1711,7 @@ def profile_train_step(run) -> None:
         log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for e in evs:
-        if any(t in e.key for t in ("nms", "roi_align", "cast_bf16")):
+        if any(t in e.key for t in ("nms", "roi_")):
             log(f"  profiler, port kernel in the train step: "
                 f"{e.device_time_total / e.count:.3f} us per launch of "
                 f"{e.key.replace('(anonymous namespace)::', '')[:60]} "
@@ -1796,8 +1889,7 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     log(f"  checkpoint round trip on the card ({len(before)} model tensors, "
         f"momentum, schedule): state bit-equal; the step after reload gives "
         f"the same losses (total {again['total_loss']:.6f}) and an update "
-        f"within {rel:.2e} of the step without it (kernel 2b's atomics "
-        f"reorder its sums)")
+        f"within {rel:.2e} in relative norm of the step without it")
     del model, model2, opt, opt2
     torch.cuda.empty_cache()
     return totals, errs, row

@@ -4,7 +4,8 @@ canvases of 32-256 pixels, never the V-39.
 
 As the smoke run's own rehearsal does, the ops route to ``_kernels``,
 whose launches are replaced by the plain versions with the launch counts
-kept (the ROIAlign backward included), and the CUDA-only calls
+kept (the ROIAlign backward included; kernel 2b's prepass check reads
+the CPU oracle of its windows), and the CUDA-only calls
 (synchronize, sync-debug mode, events, memory statistics, nvidia-smi)
 are faked; the CUDA-graph timing runs only on the card (``timing``
 off)."""
@@ -20,7 +21,8 @@ from centermask2_tpu_torch.ops import nms as nms_mod
 from centermask2_tpu_torch.ops import roi_align as roi_mod
 from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
 from centermask2_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
-                                                 roi_align_feature_grad_plain)
+                                                 roi_align_feature_grad_plain,
+                                                 roi_tap_windows)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,6 +67,7 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(_kernels, "nms_keep_sorted", nms_plain)
     monkeypatch.setattr(_kernels, "roi_align", roi_plain)
     monkeypatch.setattr(_kernels, "roi_align_backward", roi_bwd_plain)
+    monkeypatch.setattr(_kernels, "roi_tap_windows", roi_tap_windows)
     monkeypatch.setattr(nms_mod, "_keep_sorted",
                         lambda b, v, t: _kernels.nms_keep_sorted(b, v, t))
     monkeypatch.setattr(
@@ -165,9 +168,22 @@ def test_train_phase_rehearsal(rehearsal, capsys):
     for what in ("bf16 train step", "f32 train step"):
         assert f"nms {what}: N=" in out and "keep sets bit-equal" in out
         assert f"roi_align_backward {what}: float32" in out
-    assert "roi_align_backward synthetic P5 ROIs, levels [2]: bfloat16" in out
+    # kernel 2b's synthetic cases, each in both dtypes: launched twice,
+    # bit-equal, its windows equal to the oracle's
+    bwd = [line for line in out.splitlines()
+           if "roi_align_backward synthetic" in line]
+    assert len(bwd) == 2 * len(chip_smoke.ROI_BWD_CASES)
+    assert all("two launches bit-equal; prepass windows equal to the CPU "
+               "oracle's" in line for line in bwd)
+    for what in ("P5 ROIs, levels [2]: bfloat16",
+                 "none ROIs, levels []: float32 R=0 C=8",
+                 "outside ROIs", "(0 nonempty)", "stacked ROIs, levels [0]",
+                 "float32 R=24 C=200 o=7 s=2", "bfloat16 R=24 C=200 o=14 s=1",
+                 "float32 R=24 C=8 o=5 s=3"):
+        assert what in out
     assert "no host sync in the step" in out
     assert "f32 train step, kernels vs plain: " in out
+    assert "largest difference between the two kernel runs 0.0e+00" in out
     assert "checkpoint round trip on the card" in out
 
 

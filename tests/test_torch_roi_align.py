@@ -150,6 +150,22 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                            True)
 
 
+@pytest.mark.parametrize("fn", ["roi_align_backward", "roi_tap_windows"])
+def test_backward_wrappers_refuse_cpu_tensors(fn):
+    """Kernel 2b and its prepass launch on CUDA tensors or raise; the CPU
+    path (the plain VJP) is chosen in ops/roi_align.py, not here."""
+    idx = torch.zeros(1, dtype=torch.int32)
+    shapes = [(1, 4, 8, 8)]
+    with pytest.raises(ValueError, match="CUDA"):
+        if fn == "roi_align_backward":
+            _kernels.roi_align_backward(torch.zeros(1, 4, 14, 14),
+                                        torch.zeros(1, 4), idx, idx, shapes,
+                                        torch.float32, [0.125], 14, 2, True)
+        else:
+            _kernels.roi_tap_windows(torch.zeros(1, 4), idx, idx, shapes,
+                                     [0.125], 14, 2, True)
+
+
 def test_kernel_wrapper_refuses_more_samples_than_its_tables():
     """Kernel 2 keeps o*s samples per axis in fixed tables (64)."""
     feats = [torch.zeros(1, 4, 8, 8)]

@@ -3,8 +3,11 @@ gradient against the JAX package, on the CPU in float32: detectron2
 matching, the sampler with JAX's own uniform draws (``jax.random.uniform``
 of each key of ``jax.random.split(rng, B)``, handed to the port as
 ``draws``), the tie order of the fg pick and of the sampler, and the
-plain ROIAlign VJP against ``jax.vjp``.
+plain ROIAlign VJP against ``jax.vjp`` and the tap windows of kernel
+2b's prepass (its CPU oracle) against the VJP's nonzeros.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -148,17 +151,20 @@ def test_subsample_breaks_equal_priorities_by_index():
     np.testing.assert_array_equal(valid[0].numpy(), np.asarray(jv))
 
 
-def test_roi_align_plain_vjp_matches_jax():
-    """The CPU backward (JAX's separable VJP, in NCHW) against jax.vjp of
-    multilevel_roi_align, 1e-5 relative; boxes get no gradient."""
-    from centermask2_tpu.ops.roi_align import multilevel_roi_align as jra
-    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align
+VJP_SHAPES = [(16, 20), (8, 10), (4, 5)]  # P3-P5 of a 128x160 canvas
+VJP_SCALES = (1 / 8, 1 / 16, 1 / 32)
+VJP_OS = [(7, 2), (14, 2), (14, 1), (5, 3)]
 
+
+def _vjp_inputs(case: str, o: int):
+    """Features (N = 2, NCHW), boxes, images, levels and an output
+    gradient for one case of the ROIAlign VJP: mixed ROIs over the three
+    levels (across the border, outside), C = 5 (not a multiple of kernel
+    2b's channel group), no ROIs, every ROI outside the image, and 64
+    copies of one 3x3 px box (the longest ROI list one tile gets)."""
     rng = np.random.RandomState(8)
-    N, C = 2, 6
-    shapes = [(16, 20), (8, 10), (4, 5)]
-    feats = [rng.randn(N, C, h, w).astype(np.float32) for h, w in shapes]
-    R = 24
+    N, C, R = 2, 5 if case == "C=5" else 6, 24
+    feats = [rng.randn(N, C, h, w).astype(np.float32) for h, w in VJP_SHAPES]
     xy = rng.rand(R, 2) * [160, 128]
     wh = 2 + rng.rand(R, 2) * 80
     boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
@@ -166,25 +172,93 @@ def test_roi_align_plain_vjp_matches_jax():
     boxes[3] = [170.0, 140.0, 200.0, 160.0]  # outside
     bidx = rng.randint(0, N, R).astype(np.int32)
     levels = rng.randint(0, 3, R).astype(np.int32)
-    g = rng.randn(R, C, 7, 7).astype(np.float32)
-    scales = (1 / 8, 1 / 16, 1 / 32)
+    if case == "no ROIs":
+        boxes, bidx, levels = boxes[:0], bidx[:0], levels[:0]
+    elif case == "outside":
+        x = rng.rand(R) * 100
+        boxes = np.stack([x + 200, x - 60, x + 260, x], 1).astype(np.float32)
+        boxes[::2] = [[-90.0, -80.0, -40.0, -35.0]]
+    elif case == "stacked":
+        R = 64
+        boxes = np.tile(np.float32([[41.0, 27.0, 44.0, 30.0]]), (R, 1))
+        bidx = np.zeros(R, np.int32)
+        levels = np.zeros(R, np.int32)
+    g = rng.randn(len(boxes), C, o, o).astype(np.float32)
+    return feats, boxes, bidx, levels, g
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(case: str, o: int, s: int):
+    """The inputs of one case and JAX's pooled output and feature
+    gradients, NCHW (cached: both tests below read them). JAX's pool does
+    not take R = 0 (a reshape of the empty gather), where the output is
+    empty and every gradient an empty sum, zero."""
+    from centermask2_tpu.ops.roi_align import multilevel_roi_align as jra
+
+    inputs = _vjp_inputs(case, o)
+    feats, boxes, bidx, levels, g = inputs
+    if len(boxes) == 0:
+        return inputs, np.zeros((0, feats[0].shape[1], o, o), np.float32), \
+            [np.zeros_like(f) for f in feats]
 
     def jf(*fs):
         return jra(list(fs), jnp.asarray(boxes), jnp.asarray(bidx),
-                   jnp.asarray(levels), scales, 7, 2, True)
+                   jnp.asarray(levels), VJP_SCALES, o, s, True)
 
     jfeats = [jnp.asarray(np.transpose(f, (0, 2, 3, 1))) for f in feats]
     out, vjp = jax.vjp(jf, *jfeats)
     want = vjp(jnp.asarray(np.transpose(g, (0, 2, 3, 1))))
+    return inputs, np.transpose(np.asarray(out), (0, 3, 1, 2)), \
+        [np.transpose(np.asarray(w), (0, 3, 1, 2)) for w in want]
+
+
+@pytest.mark.parametrize("case", ["mixed", "C=5", "no ROIs", "outside",
+                                  "stacked"])
+@pytest.mark.parametrize("o,s", VJP_OS)
+def test_roi_align_plain_vjp_matches_jax(o, s, case):
+    """The CPU backward (JAX's separable VJP, in NCHW) against jax.vjp of
+    multilevel_roi_align, 1e-5 relative; boxes get no gradient; with no
+    ROI, or none in the image, every level gradient is zero in its shape
+    and dtype."""
+    from centermask2_tpu_torch.ops.roi_align import multilevel_roi_align
+
+    (feats, boxes, bidx, levels, g), out, want = _jax_case(case, o, s)
     xs = [t(f).requires_grad_(True) for f in feats]
     bx = t(boxes).requires_grad_(True)
-    got = multilevel_roi_align(xs, bx, t(bidx), t(levels), scales, 7, 2)
-    np.testing.assert_allclose(got.detach().numpy(),
-                               np.transpose(np.asarray(out), (0, 3, 1, 2)),
-                               atol=1e-5)
+    got = multilevel_roi_align(xs, bx, t(bidx), t(levels), VJP_SCALES, o, s)
+    np.testing.assert_allclose(got.detach().numpy(), out, atol=1e-5)
     (got * t(g)).sum().backward()
     for x, w in zip(xs, want):
-        w = np.transpose(np.asarray(w), (0, 3, 1, 2))
+        assert x.grad.shape == x.shape and x.grad.dtype == torch.float32
         np.testing.assert_allclose(x.grad.numpy(), w,
                                    atol=1e-5 * np.abs(w).max())
+        if case in ("no ROIs", "outside"):
+            assert not x.grad.any()
     assert bx.grad is None
+
+
+@pytest.mark.parametrize("case", ["mixed", "stacked"])
+@pytest.mark.parametrize("o,s", VJP_OS)
+def test_roi_tap_windows_hold_every_gradient_pixel(o, s, case):
+    """Every nonzero of JAX's feature gradient lies inside the union of
+    the tap windows (kernel 2b's prepass table, by its CPU oracle) of the
+    ROIs on its level and image; ROIs outside the image have none."""
+    from centermask2_tpu_torch.ops.roi_align import roi_tap_windows
+
+    (feats, boxes, bidx, levels, g), _, want = _jax_case(case, o, s)
+    shapes = [f.shape for f in feats]
+    win = roi_tap_windows(t(boxes), t(bidx), t(levels), shapes, VJP_SCALES,
+                          o, s).numpy()
+    assert win.shape == (len(boxes), 6) and win.dtype == np.int32
+    hits = 0
+    for lvl, w in enumerate(want):
+        cover = np.zeros((w.shape[0],) + w.shape[2:], bool)
+        for lv, im, y0, y1, x0, x1 in win:
+            if lv == lvl:
+                cover[im, y0:y1 + 1, x0:x1 + 1] = True
+        hit = np.abs(w).max(axis=1) > 0  # (N, H, W)
+        assert not (hit & ~cover).any()
+        hits += int(hit.sum())
+    assert hits > 0
+    if case == "mixed":  # box 3 lies outside the image
+        assert (win[3, 2:] == [0, -1, 0, -1]).all()
