@@ -22,7 +22,8 @@ Weight transforms:
 
 Missing and unused keys are reported, not fatal (the check_keys contract
 of deploy_utils.py:31-43). The ResNet and MobileNet backbones (ROADMAP
-queue 1, item 11) and the keypoint head (item 12) raise
+queue 1, 'The other backbones and norms') and the keypoint head
+('Deformable conv, keypoints, adaptive ROIAlign') raise
 ``NotImplementedError``.
 """
 
@@ -243,11 +244,12 @@ def convert_checkpoint(
     if backbone != "vovnet" or conv_body not in STAGE_SPECS:
         raise NotImplementedError(
             f"converting the {backbone} backbone {conv_body!r} is not ported "
-            "yet (ROADMAP queue 1, item 11)")
+            "yet (ROADMAP queue 1, 'The other backbones and norms')")
     sd = _strip_prefixes(state_dict)
     if any(k.startswith("roi_heads.keypoint_head.") for k in sd):
         raise NotImplementedError(
-            "the keypoint head is not ported yet (ROADMAP queue 1, item 12)")
+            "the keypoint head is not ported yet (ROADMAP queue 1, "
+            "'Deformable conv, keypoints, adaptive ROIAlign')")
     cv = Converter(sd)
 
     # backbone-only checkpoints (vovnet39_ese_detectron2.pth) have bare keys

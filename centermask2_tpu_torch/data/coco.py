@@ -8,7 +8,8 @@ normalize, pad to the canvas, and fixed-capacity ground truth: padded
 boxes, classes, validity and, for each instance, its polygons rasterized
 once over its own box into a P x P patch (``CenterMask.loss`` resamples
 the patches at the proposals). cv2 is imported by the rasterizers only;
-there is no other rasterizer. Keypoints wait for ROADMAP queue 1, item 12.
+there is no other rasterizer. Keypoints wait for ROADMAP queue 1,
+'Deformable conv, keypoints, adaptive ROIAlign'.
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ from pinned memory with ``non_blocking=True``, and each request's
 outputs are copied into pinned host buffers behind a CUDA event; the
 host waits on that event when it postprocesses the request, up to
 ``pipeline_depth`` requests later, and never on the whole device.
+
+By default on CUDA the requests replay captured CUDA graphs
+(``export/captured.py::CapturedInference``, one per canvas met), the
+counterpart of the JAX loop's jitted forward; ``fn=model.inference``
+runs them eagerly.
 """
 
 from __future__ import annotations
@@ -26,13 +31,17 @@ from ..data import (detector_postprocess, preprocess_for_model,
                     read_image_bgr, single_wrap_outputs)
 from ..data.coco import CocoDataset
 from ..data.prefetch import prefetch
+from ..export.captured import CapturedInference, supports_graphs
 from .coco_eval import COCOEvaluator, COCOGt
 
 
 def _to_host(out, cuda: bool) -> Tuple[Dict[str, torch.Tensor],
                                        Optional[torch.cuda.Event]]:
     """Queue the copy of one request's outputs to the host; on CUDA into
-    pinned buffers, with an event recorded behind the copies."""
+    pinned buffers, with an event recorded behind the copies. The copy is
+    queued before the next request: a captured program's outputs are the
+    static buffers its next replay rewrites. On the CPU the outputs are
+    the host's already."""
     fields = out._asdict()
     if not cuda:
         return fields, None
@@ -62,6 +71,7 @@ def evaluate_dataset(
     tight: Optional[bool] = None,
     tight_compute: bool = False,
     read_image: Callable[[str], np.ndarray] = read_image_bgr,
+    fn: Optional[Callable] = None,
 ):
     """Evaluate ``model`` (a ``CenterMask`` in eval mode, on its device)
     over a COCO-format dataset, one image per request.
@@ -83,9 +93,19 @@ def evaluate_dataset(
     edge and the default image size of ROI level assignment, as
     detectron2's per-image /32 padding does. ``read_image``: path -> HWC
     uint8 BGR array.
+
+    ``fn(images, image_sizes, valid_hw, canvas_hw)`` runs one request, as
+    ``model.inference`` does (JAX ``loop.py:35``). By default it is a
+    ``CapturedInference`` of ``model`` on CUDA (one graph per canvas, its
+    capture seconds counted in ``avg_ms``) and ``model.inference`` on the
+    CPU; pass ``model.inference`` for the eager loop on CUDA, or a
+    ``CapturedInference`` built once to reuse its graphs over calls.
     """
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
+    if fn is None:
+        fn = CapturedInference(model) if supports_graphs(dev) \
+            else model.inference
     s2d = bool(getattr(model, "s2d_input", False))
     tight_compute = bool(tight_compute) and s2d
     tight = (s2d if tight is None else bool(tight) or tight_compute) and s2d
@@ -139,7 +159,7 @@ def evaluate_dataset(
                                        depth=max(2, pipeline_depth)):
         x = x.to(dev, non_blocking=True)
         hw = hw.to(dev, non_blocking=True)
-        out = model.inference(x, None, hw, canvas)
+        out = fn(x, None, hw, canvas)
         pending.append((img_id, pre, *_to_host(out, cuda)))
         if len(pending) > pipeline_depth:
             drain()

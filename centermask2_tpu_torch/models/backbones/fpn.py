@@ -3,7 +3,7 @@
 top-down fusion cropped to the ceil-divided lateral shape, 3x3 output
 convs, and the FCOS LastLevelP6P7 top block (reference
 modeling/backbone/fpn.py:17-35). The other top blocks and FPN norms are
-not ported yet (ROADMAP queue 1, item 11).
+not ported yet (ROADMAP queue 1, 'The other backbones and norms').
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ class FPN(nn.Module):
         if norm or top_block != "p6p7":
             raise NotImplementedError(
                 f"FPN norm {norm!r} / top block {top_block!r}: only the "
-                "plain FPN with P6P7 is ported (ROADMAP queue 1, item 11)")
+                "plain FPN with P6P7 is ported (ROADMAP queue 1, "
+                "'The other backbones and norms')")
         self.stages = [int(math.log2(s)) for s in in_strides]
         self.fuse_type = fuse_type
         for c, stage in zip(in_channels, self.stages):

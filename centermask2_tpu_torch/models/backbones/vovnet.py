@@ -65,7 +65,7 @@ def _spec(body: str) -> Dict:
     if body not in STAGE_SPECS:
         raise NotImplementedError(
             f"VoVNet body {body!r} is not ported yet: the depthwise bodies "
-            "come with ROADMAP queue 1, item 11")
+            "come with ROADMAP queue 1, 'The other backbones and norms'")
     return STAGE_SPECS[body]
 
 
@@ -322,7 +322,13 @@ class VoVNet(nn.Module):
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if not self.s2d_input:
             return self.stem_3(self.stem_2(self.stem_1(x)))
-        if torch.is_grad_enabled():  # a differentiable function of the stem
+        # a differentiable function of the stem; under torch.export (fake
+        # parameters, no data pointer for the cache's key) a traced one;
+        # in a CUDA graph one built by the graph, so that every replay
+        # reads the stem's weights as they are then (training updates
+        # them in place)
+        if torch.is_grad_enabled() or torch.compiler.is_exporting() or (
+                x.is_cuda and torch.cuda.is_current_stream_capturing()):
             srcs = self._stem_sources()
             kernels = s2d_stem_kernels(*(tuple(srcs[i:i + 3])
                                          for i in (0, 3, 6)), self.dtype)

@@ -24,8 +24,9 @@ class Tower(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm not in ("GN", ""):
-            raise NotImplementedError(f"FCOS tower norm {norm!r} is not ported "
-                                      "(ROADMAP queue 1, item 11)")
+            raise NotImplementedError(
+                f"FCOS tower norm {norm!r} is not ported (ROADMAP queue 1, "
+                "'The other backbones and norms')")
         self.num_convs = num_convs
         for i in range(num_convs):
             self.add_module(f"conv{i}", Conv2d(channels, channels, init=0.01,
@@ -53,8 +54,8 @@ class FCOSHead(nn.Module):
         super().__init__()
         if use_deformable:
             raise NotImplementedError(
-                "deformable FCOS towers are not ported yet "
-                "(ROADMAP queue 1, item 12)")
+                "deformable FCOS towers are not ported yet (ROADMAP queue "
+                "1, 'Deformable conv, keypoints, adaptive ROIAlign')")
         self.share_tower = Tower(num_share_convs, in_channels, norm, dtype)
         self.cls_tower = Tower(num_cls_convs, in_channels, norm, dtype)
         self.bbox_tower = Tower(num_box_convs, in_channels, norm, dtype)

@@ -11,7 +11,7 @@
 The two normalizers (positives, centerness sum) are means across data
 replicas in the reference. Here they are local: ``reduce``, when given,
 is a callable that returns the cross-replica mean of a scalar tensor
-(data parallelism, ROADMAP queue 1 item 14); ``None`` is one replica.
+(ROADMAP queue 1, 'Data parallelism'); ``None`` is one replica.
 """
 
 from __future__ import annotations

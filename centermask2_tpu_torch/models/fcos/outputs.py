@@ -14,9 +14,13 @@ written out (the JAX package vmaps).
 The per-pixel stage stays in the head's compute dtype; everything after
 the top-k gather is float32 (JAX ``outputs.py:129-131``).
 
-Top-k ties: ``torch.topk`` and the JAX split-merge top-k may order exactly
-equal scores differently (JAX ``outputs.py:79-107``); the values and the
-selected sets agree.
+Top-k ties: both top-k stages take equal values lowest index first, as
+``lax.top_k`` does on the CPU reference (and the JAX split-merge, which
+merges chunks in index order): a stable descending sort, not
+``torch.topk``, whose order among ties is unspecified on CUDA. So the
+selected set equals JAX's also when a tie straddles the k-th place,
+which bf16 scores over ~20k locations make possible. (JAX on a TPU may
+order exact ties otherwise, ``outputs.py:79-107``.)
 """
 
 from __future__ import annotations
@@ -56,6 +60,14 @@ class DecodedProposals(NamedTuple):
     pred_classes: torch.Tensor  # (B, K) int32
     locations: torch.Tensor  # (B, K, 2)
     valid: torch.Tensor  # (B, K) bool
+
+
+def topk_lowest_index_first(x: torch.Tensor, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest of each row of (B, N) ``x``,
+    equal values lowest index first."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -133,10 +145,10 @@ def decode_batch(
     k_loc = min(K, L)
     # a pair in the global top-K implies its location is in the top-K
     # locations by max-class score (its max dominates it)
-    top_locs = torch.topk(loc_best, k_loc, dim=1).indices  # (B, k_loc)
+    top_locs = topk_lowest_index_first(loc_best, k_loc)[1]  # (B, k_loc)
     rows = _gather_rows(scores_cat, top_locs).float()  # (B, k_loc, C)
-    vals, flat_idx = torch.topk(rows.reshape(B, -1), min(K, k_loc * C),
-                                dim=1)
+    vals, flat_idx = topk_lowest_index_first(rows.reshape(B, -1),
+                                             min(K, k_loc * C))
     valid = vals > 0.0
     loc_idx = torch.gather(top_locs, 1, flat_idx // C)
     classes = (flat_idx % C).to(torch.int32)
@@ -164,9 +176,9 @@ def _decode_per_level(locations, masked_levels, flat_reg, strides,
         B, HW, C = ms.shape
         k = min(pre_nms_topk, HW * C)
         k_loc = min(k, HW)
-        top_locs = torch.topk(ms.amax(dim=2), k_loc, dim=1).indices
+        top_locs = topk_lowest_index_first(ms.amax(dim=2), k_loc)[1]
         rows = _gather_rows(ms, top_locs).float()  # (B, k_loc, C)
-        vals, flat_idx = torch.topk(rows.reshape(B, -1), k, dim=1)
+        vals, flat_idx = topk_lowest_index_first(rows.reshape(B, -1), k)
         valid = vals > 0.0
         loc_idx = torch.gather(top_locs, 1, flat_idx // C)
         per_locs = locs[loc_idx]  # (B, k, 2)

@@ -18,9 +18,11 @@ proposal matching and sampling, the foreground pick, the mask and
 MaskIoU losses on the multilevel ROIAlign of the picked boxes. Its
 inputs are the f32 canvas (or its s2d layout) and a ``GroundTruth``.
 
-Not ported yet, each raising ``NotImplementedError``: keypoints and DCN
-(ROADMAP queue 1, item 12), the ResNet and MobileNet backbones (item 11),
-BN and SyncBN (item 14) and ``TPU.REMAT_BACKBONE`` (item 13).
+Not ported yet, each raising ``NotImplementedError``, under these items
+of ROADMAP queue 1: keypoints and DCN ('Deformable conv, keypoints,
+adaptive ROIAlign'), the ResNet and MobileNet backbones ('The other
+backbones and norms'), BN and SyncBN ('Data parallelism') and
+``TPU.REMAT_BACKBONE`` ('Leftovers of done items').
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ class CenterMask(nn.Module):
         super().__init__()
         if top_levels != 2:
             raise NotImplementedError(
-                "only the P6P7 top block is ported (ROADMAP queue 1, item 11)")
+                "only the P6P7 top block is ported (ROADMAP queue 1, "
+                "'The other backbones and norms')")
         self.fpn_in_features = tuple(fpn_in_features)
         self.fcos_in_features = tuple(fcos_in_features)
         self.fpn_strides = tuple(fpn_strides)
@@ -377,6 +380,14 @@ class CenterMask(nn.Module):
 
 
     # ------------------------------------------------------------------
+    def draws_shape(self, gt: GroundTruth) -> Tuple[int, int]:
+        """(B, K + G) of the proposal sampler's uniforms: K post-NMS train
+        proposals (the decode pads to K) and the G gt slots appended with
+        PROPOSAL_APPEND_GT; ``loss`` draws this shape when not given it."""
+        B, G = gt.valid.shape
+        K = self.train_decode_kwargs["post_nms_topk"]
+        return B, K + (G if self.proposal_append_gt else 0)
+
     def loss(self, images: torch.Tensor, gt: GroundTruth,
              draws: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None
@@ -425,9 +436,8 @@ class CenterMask(nn.Module):
             proposals = self._decode(locations, logits, reg, ctr,
                                      training=True)
         if draws is None:
-            P = proposals.valid.shape[1] + (
-                gt.valid.shape[1] if self.proposal_append_gt else 0)
-            draws = torch.rand((B, P), generator=generator, device=dev)
+            draws = torch.rand(self.draws_shape(gt), generator=generator,
+                               device=dev)
         sampled = label_and_sample_proposals(
             draws, proposals.pred_boxes, proposals.valid, gt.boxes,
             gt.classes, gt.valid, self.num_classes,
@@ -585,24 +595,27 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
             cfg.MODEL.MOBILENET:
         raise NotImplementedError(
             f"backbone {backbone_name!r} is not ported yet (ROADMAP queue 1, "
-            "item 11)")
+            "'The other backbones and norms')")
     if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
-            "keypoints are not ported yet (ROADMAP queue 1, item 12)")
+            "keypoints are not ported yet (ROADMAP queue 1, "
+            "'Deformable conv, keypoints, adaptive ROIAlign')")
     if cfg.MODEL.FCOS.USE_DEFORMABLE or any(cfg.MODEL.VOVNET.STAGE_WITH_DCN):
         raise NotImplementedError(
-            "deformable convs are not ported yet (ROADMAP queue 1, item 12)")
+            "deformable convs are not ported yet (ROADMAP queue 1, "
+            "'Deformable conv, keypoints, adaptive ROIAlign')")
     if cfg.TPU.APPROX_TOPK:
         raise NotImplementedError(
-            "TPU.APPROX_TOPK has no port (ROADMAP queue 1, item 11)")
+            "TPU.APPROX_TOPK has no port (ROADMAP queue 1, "
+            "'The other backbones and norms')")
     if cfg.TPU.REMAT_BACKBONE:
         raise NotImplementedError(
             "TPU.REMAT_BACKBONE (backbone recomputation in the backward) is "
-            "not ported yet (ROADMAP queue 1, item 13)")
+            "not ported yet (ROADMAP queue 1, 'Leftovers of done items')")
     if cfg.MODEL.VOVNET.NORM in ("BN", "SyncBN"):
         raise NotImplementedError(
             f"norm {cfg.MODEL.VOVNET.NORM!r} is not ported yet (ROADMAP "
-            "queue 1, item 14)")
+            "queue 1, 'Data parallelism')")
     fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or ("stage3", "stage4", "stage5")
     model = CenterMask(
         conv_body=cfg.MODEL.VOVNET.CONV_BODY,

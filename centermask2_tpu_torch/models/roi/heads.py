@@ -13,7 +13,8 @@
 All per-ROI tensors are padded buffers with validity masks; the images of
 a batch share one ROI axis (batch_indices select the image). Orders among
 equal keys are the JAX ones: stable sorts, first maxima. The keypoint
-branch is not ported yet (ROADMAP queue 1, item 12).
+branch is not ported yet (ROADMAP queue 1, 'Deformable conv,
+keypoints, adaptive ROIAlign').
 """
 
 from __future__ import annotations
@@ -159,7 +160,8 @@ class CenterROIHeads(nn.Module):
         if sampling_ratio == 0:
             raise NotImplementedError(
                 "TPU.POOLER_SAMPLING_RATIO=0 (adaptive buckets) is not "
-                "ported yet (ROADMAP queue 1, item 12)")
+                "ported yet (ROADMAP queue 1, "
+                "'Deformable conv, keypoints, adaptive ROIAlign')")
         self.in_strides = tuple(in_strides)
         self.mask_on = mask_on
         self.maskiou_on = maskiou_on

@@ -23,7 +23,7 @@ class SpatialAttentionMaskHead(nn.Module):
         if norm:
             raise NotImplementedError(
                 f"mask head norm {norm!r} is not ported (shipped configs "
-                "use none; ROADMAP queue 1, item 11)")
+                "use none; ROADMAP queue 1, 'The other backbones and norms')")
         self.num_conv = num_conv
         ch = in_channels
         for k in range(num_conv):

@@ -12,8 +12,13 @@ The launch functions take CUDA tensors only, check device, dtype, shape
 and contiguity, launch on PyTorch's current stream, raise if the C entry
 returns a CUDA error, and add one to their launch count
 (``nms_launches``, ``roi_align_launches``,
-``roi_align_backward_launches``). The routing from CPU tensors to the
-plain PyTorch versions lives in ``ops/nms.py`` and ``ops/roi_align.py``.
+``roi_align_backward_launches``). The counts are host integers: a
+launch recorded into a CUDA graph counts once, at capture, and a replay
+adds nothing. ``ops/nms.py`` and ``ops/roi_align.py`` register these
+functions as the CUDA implementations of the operators
+``cm2::nms_keep_sorted``, ``cm2::roi_align`` and
+``cm2::roi_align_backward``, whose CPU implementations are the plain
+PyTorch versions.
 """
 
 from __future__ import annotations

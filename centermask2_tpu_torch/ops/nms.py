@@ -6,11 +6,14 @@ a fixed number of output slots plus validity: no host sync, no
 data-dependent shapes. Every function takes a leading batch axis
 (B, N, ...), which the JAX package gets from vmap.
 
-The greedy core runs over the score-sorted, tile-padded boxes:
+The greedy core runs over the score-sorted, tile-padded boxes through
+the registered operator ``cm2::nms_keep_sorted``, which dispatches by
+device:
 - on a CUDA tensor, kernel 1 (``csrc/nms.cu`` via ``_kernels``);
 - on a CPU tensor, its plain version ``greedy_keep_sorted_plain``, the
   tiled fixpoint of the JAX XLA path (``nms.py:107-131``).
-Both give the exact greedy keep set.
+Both give the exact greedy keep set. Its fake implementation states the
+output, so ``torch.export`` traces through it.
 """
 
 from __future__ import annotations
@@ -65,11 +68,29 @@ def greedy_keep_sorted_plain(sboxes: torch.Tensor, svalid: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op("cm2::nms_keep_sorted", mutates_args=(),
+                         device_types="cpu")
+def nms_keep_sorted_op(sboxes: torch.Tensor, svalid: torch.Tensor,
+                       iou_threshold: float) -> torch.Tensor:
+    """Greedy keep mask (B, N) bool over score-sorted boxes (B, N, 4) f32
+    and validity (B, N) bool: the plain version on the CPU."""
+    return greedy_keep_sorted_plain(sboxes, svalid, iou_threshold)
+
+
+@nms_keep_sorted_op.register_kernel("cuda")
+def _(sboxes, svalid, iou_threshold):
+    # looked up at each call, so a swap of _kernels' function reaches it
+    return _kernels.nms_keep_sorted(sboxes, svalid, iou_threshold)
+
+
+@nms_keep_sorted_op.register_fake
+def _(sboxes, svalid, iou_threshold):
+    return torch.empty_like(svalid)
+
+
 def _keep_sorted(sboxes: torch.Tensor, svalid: torch.Tensor,
                  iou_threshold: float) -> torch.Tensor:
-    if sboxes.is_cuda:
-        return _kernels.nms_keep_sorted(sboxes, svalid, iou_threshold)
-    return greedy_keep_sorted_plain(sboxes, svalid, iou_threshold)
+    return nms_keep_sorted_op(sboxes, svalid, float(iou_threshold))
 
 
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,

@@ -32,8 +32,12 @@ Both forward versions do the same f32 operations (XLA's, with each
 division by a constant a product with its f32 reciprocal), accumulate in
 float32 and return the features' dtype.
 
+Both run through the registered operators ``cm2::roi_align`` and
+``cm2::roi_align_backward`` (below), which dispatch by device and have
+fake implementations for ``torch.export``.
+
 Not ported here: ``sampling_ratio=0``'s adaptive buckets (ROADMAP queue
-1, item 12).
+1, 'Deformable conv, keypoints, adaptive ROIAlign').
 """
 
 from __future__ import annotations
@@ -287,30 +291,118 @@ def roi_tap_windows(
     return torch.stack(cols, dim=1).to(torch.int32)
 
 
-def _forward(features, boxes, batch_indices, levels, scales, output_size,
-             sampling_ratio, aligned) -> torch.Tensor:
-    if boxes.is_cuda:
-        return _kernels.roi_align(
-            [f.contiguous() for f in features], boxes.float().contiguous(),
-            batch_indices.to(torch.int32).contiguous(),
-            levels.to(torch.int32).contiguous(), scales, output_size,
-            sampling_ratio, aligned)
+# The registered operators: the plain versions on the CPU, kernels 2 and
+# 2b on CUDA (``_kernels``' functions looked up at each call, so a swap of
+# them reaches every call site), and fake implementations that state the
+# outputs for ``torch.export``. Kernel 2b's per-level gradients go out as
+# one flat buffer (an operator's outputs may not alias one another) that
+# ``_split_levels`` views per level; ``shapes`` is the level shapes
+# (N, C, H, W) flattened.
+
+@torch.library.custom_op("cm2::roi_align", mutates_args=(),
+                         device_types="cpu")
+def roi_align_op(features: List[torch.Tensor], boxes: torch.Tensor,
+                 batch_indices: torch.Tensor, levels: torch.Tensor,
+                 scales: List[float], output_size: int, sampling_ratio: int,
+                 aligned: bool) -> torch.Tensor:
+    """Multilevel ROIAlign (R, C, o, o): the plain version on the CPU."""
     return multilevel_roi_align_plain(features, boxes, batch_indices, levels,
                                       scales, output_size, sampling_ratio,
                                       aligned)
 
 
+@roi_align_op.register_kernel("cuda")
+def _(features, boxes, batch_indices, levels, scales, output_size,
+      sampling_ratio, aligned):
+    return _kernels.roi_align(features, boxes, batch_indices, levels, scales,
+                              output_size, sampling_ratio, aligned)
+
+
+@roi_align_op.register_fake
+def _(features, boxes, batch_indices, levels, scales, output_size,
+      sampling_ratio, aligned):
+    return features[0].new_empty((boxes.shape[0], features[0].shape[1],
+                                  output_size, output_size))
+
+
+def _level_shapes(shapes: List[int]) -> List[Tuple[int, int, int, int]]:
+    return [tuple(shapes[i:i + 4]) for i in range(0, len(shapes), 4)]
+
+
+def _flat(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The per-level gradients as one flat buffer: kernel 2b's own buffer
+    when they are its views, else their concatenation."""
+    base = grads[0]._base
+    n = sum(g.numel() for g in grads)
+    if base is not None and base.dim() == 1 and base.numel() == n and \
+            all(g._base is base for g in grads) and \
+            base.data_ptr() == grads[0].data_ptr():
+        return base
+    return torch.cat([g.reshape(-1) for g in grads])
+
+
+@torch.library.custom_op("cm2::roi_align_backward", mutates_args=(),
+                         device_types="cpu")
+def roi_align_backward_op(grad: torch.Tensor, boxes: torch.Tensor,
+                          batch_indices: torch.Tensor, levels: torch.Tensor,
+                          shapes: List[int], dtype: torch.dtype,
+                          scales: List[float], output_size: int,
+                          sampling_ratio: int, aligned: bool) -> torch.Tensor:
+    """The feature gradient of ``cm2::roi_align``, every level's (N, C,
+    H, W) gradient in ``dtype`` flattened into one buffer: the plain VJP
+    on the CPU."""
+    return _flat(roi_align_feature_grad_plain(
+        grad, boxes, batch_indices, levels, _level_shapes(shapes), dtype,
+        scales, output_size, sampling_ratio, aligned))
+
+
+@roi_align_backward_op.register_kernel("cuda")
+def _(grad, boxes, batch_indices, levels, shapes, dtype, scales, output_size,
+      sampling_ratio, aligned):
+    return _flat(_kernels.roi_align_backward(
+        grad, boxes, batch_indices, levels, _level_shapes(shapes), dtype,
+        scales, output_size, sampling_ratio, aligned))
+
+
+@roi_align_backward_op.register_fake
+def _(grad, boxes, batch_indices, levels, shapes, dtype, scales, output_size,
+      sampling_ratio, aligned):
+    n = sum(a * b * c * d for a, b, c, d in _level_shapes(shapes))
+    return grad.new_empty((n,), dtype=dtype)
+
+
+def _split_levels(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+    out, o = [], 0
+    for shp in shapes:
+        n = shp[0] * shp[1] * shp[2] * shp[3]
+        out.append(flat[o:o + n].view(shp))
+        o += n
+    return out
+
+
+def _roi_args(boxes, batch_indices, levels):
+    return (boxes.float().contiguous(),
+            batch_indices.to(torch.int32).contiguous(),
+            levels.to(torch.int32).contiguous())
+
+
+def _forward(features, boxes, batch_indices, levels, scales, output_size,
+             sampling_ratio, aligned) -> torch.Tensor:
+    return roi_align_op([f.contiguous() for f in features],
+                        *_roi_args(boxes, batch_indices, levels),
+                        [float(s) for s in scales], output_size,
+                        sampling_ratio, aligned)
+
+
 def _backward(grad, boxes, batch_indices, levels, shapes, dtype, scales,
               output_size, sampling_ratio, aligned) -> List[torch.Tensor]:
-    if grad.is_cuda:
-        return _kernels.roi_align_backward(
-            grad.contiguous(), boxes.float().contiguous(),
-            batch_indices.to(torch.int32).contiguous(),
-            levels.to(torch.int32).contiguous(), shapes, dtype, scales,
-            output_size, sampling_ratio, aligned)
-    return roi_align_feature_grad_plain(grad, boxes, batch_indices, levels,
-                                        shapes, dtype, scales, output_size,
-                                        sampling_ratio, aligned)
+    shapes = [tuple(int(v) for v in shp) for shp in shapes]
+    flat = roi_align_backward_op(
+        grad.contiguous(), *_roi_args(boxes, batch_indices, levels),
+        [v for shp in shapes for v in shp], dtype,
+        [float(s) for s in scales], output_size, sampling_ratio, aligned)
+    return _split_levels(flat, shapes)
+
 
 
 class _MultilevelRoiAlign(torch.autograd.Function):
@@ -346,11 +438,16 @@ def multilevel_roi_align(
 ) -> torch.Tensor:
     """Multilevel ROIAlign -> (R, C, o, o): kernels 2 and 2b on CUDA
     tensors, the plain versions on CPU tensors; differentiable in the
-    features."""
+    features. Without a gradient to track (inference, export) it calls
+    the operator directly."""
     if sampling_ratio == 0:
         raise NotImplementedError(
-            "sampling_ratio=0 (adaptive buckets) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
+            "sampling_ratio=0 (adaptive buckets) is not ported yet (ROADMAP "
+            "queue 1, 'Deformable conv, keypoints, adaptive ROIAlign')")
+    if not (torch.is_grad_enabled()
+            and any(f.requires_grad for f in features)):
+        return _forward(list(features), boxes, batch_indices, levels, scales,
+                        output_size, sampling_ratio, aligned)
     return _MultilevelRoiAlign.apply(
         boxes.detach(), batch_indices.detach(), levels.detach(),
         tuple(float(s) for s in scales), output_size, sampling_ratio,

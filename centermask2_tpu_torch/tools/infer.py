@@ -12,7 +12,9 @@ Runs the model over a COCO-format dataset through
 inference, host rescale and mask paste, mask-score-aware COCO
 evaluation), writes ``coco_instances_results.json`` and ``metrics.json``
 to the output directory and prints the metric tables. The model runs on
-the GPU unless ``--device cpu`` asks for the CPU. Without ``--weights``
+the GPU unless ``--device cpu`` asks for the CPU; on the GPU each
+canvas's requests replay one captured CUDA graph (the loop's default,
+``export/captured.py``). Without ``--weights``
 its weights are random, from seed 0. Reading image files needs PIL.
 """
 

@@ -11,7 +11,8 @@ device (the counterpart of the repository's ``tools/train_net.py``).
 The model trains on the GPU unless ``--device cpu`` asks for the CPU.
 ``SOLVER.IMS_PER_BATCH`` is the batch of this one process. Each step is
 ``train/trainer.py``'s: the losses, backward, clipped SGD with the
-warm-up multistep schedule. Every ``--log-every`` iterations the losses
+warm-up multistep schedule, captured as one CUDA graph on the GPU and
+eager on the CPU. Every ``--log-every`` iterations the losses
 and seconds per iteration go to ``OUTPUT_DIR/metrics.jsonl``; a
 checkpoint (``checkpoint/torch_io.py``) goes to
 ``OUTPUT_DIR/checkpoints/step_N`` every ``SOLVER.CHECKPOINT_PERIOD``
@@ -20,6 +21,14 @@ scores the model every ``TEST.EVAL_PERIOD`` iterations and at the end.
 ``--resume`` takes a ``step_N`` directory or the directory holding them
 (the newest). Without a resume the weights are random, from seed 0.
 Reading image files needs PIL, rasterizing polygons cv2.
+
+Random streams, as the JAX CLI seeds them (``tools/train_net.py:145,
+174``): the loader's stream is seeded with ``SEED`` (one process), so a
+resumed run replays the batches from the fresh run's first batch; the
+proposal sampler's generator is seeded with the step it starts from
+(``PRNGKey(start)`` there). Neither resumes where the stopped run was:
+the checkpoint holds no loader position, as the JAX package's holds
+none.
 """
 
 from __future__ import annotations
@@ -94,7 +103,7 @@ def main(argv=None) -> None:
     batches = prefetch(train_batches(
         ds, batch_size, min_sizes=tuple(cfg.INPUT.MIN_SIZE_TRAIN),
         max_size=cfg.INPUT.MAX_SIZE_TRAIN, pad_to=(fixed, fixed),
-        max_gt=cfg.TPU.MAX_GT_INSTANCES, seed=seed + start,
+        max_gt=cfg.TPU.MAX_GT_INSTANCES, seed=seed,
         random_flip=cfg.INPUT.RANDOM_FLIP,
         sampling=cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING,
         workers=cfg.DATALOADER.NUM_WORKERS,
@@ -106,6 +115,12 @@ def main(argv=None) -> None:
 
         from ..evaluation import COCOGt
         from ..evaluation.loop import evaluate_dataset
+        from ..export.captured import CapturedInference, supports_graphs
+
+        # one captured forward for the whole run, its graphs reused at
+        # every evaluation (the JAX CLI hoists its jitted eval_fn)
+        eval_fn = CapturedInference(model) if supports_graphs(dev) \
+            else model.inference
 
         val_root = args.val_image_root or args.image_root
         eval_ds = CocoDataset(args.val_ann, val_root, filter_empty=False)
@@ -129,7 +144,7 @@ def main(argv=None) -> None:
                 fixed_size=fixed, min_size=cfg.INPUT.MIN_SIZE_TEST,
                 max_size=cfg.INPUT.MAX_SIZE_TEST, tasks=eval_tasks,
                 limit=args.val_limit, ds=eval_ds, gt=eval_gt,
-                progress_every=0)
+                progress_every=0, fn=eval_fn)
             model.train()
             flat = {f"{task}/{k}": v for task, m in results.items()
                     for k, v in m.items() if not k.startswith("AP-")}
@@ -138,7 +153,7 @@ def main(argv=None) -> None:
                 f"{k}={v:.2f}" for k, v in flat.items()
                 if k in ("bbox/AP", "segm/AP", "bbox/AP50", "segm/AP50")))
 
-    generator = torch.Generator(device=dev).manual_seed(seed + start)
+    generator = torch.Generator(device=dev).manual_seed(start)
     try:
         with storage:
             train_loop(make_train_step(model, optimizer, scheduler), batches,

@@ -1,12 +1,16 @@
 from .optimizer import (
     ClippedSGD,
+    WarmupMultiStepLR,
     freeze_prefixes,
+    frozen_leaves,
     make_optimizer,
     make_optimizer_from_cfg,
-    warmup_multistep_schedule,
 )
-from .trainer import batch_to_device, make_train_step, train_loop
+from .trainer import (CapturedTrainStep, StaticBatch, batch_to_device,
+                      make_train_step, train_loop)
 
-__all__ = ["ClippedSGD", "freeze_prefixes", "make_optimizer",
-           "make_optimizer_from_cfg", "warmup_multistep_schedule",
-           "batch_to_device", "make_train_step", "train_loop"]
+__all__ = ["ClippedSGD", "WarmupMultiStepLR", "freeze_prefixes",
+           "frozen_leaves", "make_optimizer",
+           "make_optimizer_from_cfg",
+           "CapturedTrainStep", "StaticBatch", "batch_to_device",
+           "make_train_step", "train_loop"]

@@ -4,10 +4,25 @@ repository's ``tools/train_net.py``), for one process on one device.
 
 ``make_train_step`` returns the step: the losses of ``CenterMask.loss``,
 their sum's backward, the clipped SGD update and the schedule's step,
-with no host sync; the metrics come back as device tensors. ``train_loop``
-feeds it host batches (``data/coco.py::train_batches``) and is the loop
-both ``tools/train_net.py`` and ``chip_smoke.py`` run. Data parallelism
-(the JAX shard_map step) waits for ROADMAP queue 1, item 14.
+with no host sync; the metrics come back as device tensors. On CUDA the
+step is captured whole into one CUDA graph (``CapturedTrainStep``), the
+counterpart of the JAX package's one jitted step: its first
+``WARMUP_STEPS`` calls run eagerly on a side stream (cuDNN's choices,
+the kernels' first use, SGD's momentum buffers), the next one records
+the graph, and every call replays it. The tensors of the capturing call
+(the batch and the sampler's uniforms) are the graph's inputs: a later
+call with other tensors copies them in, and without uniforms of its own
+draws them in place with ``torch.rand(..., generator=, out=)``, the
+same draw in the same order as the eager step's, so the random stream
+is the same. ``train_loop`` passes the same device buffers every step,
+so nothing is copied twice. The model's parameters, the momentum
+buffers and the schedule's count are updated in place by every replay;
+``restore_train_state`` writes a checkpoint into those same tensors, so
+the graph stays valid across a restore. ``train_loop`` feeds the step
+host batches (``data/coco.py::train_batches``) through pinned and
+device buffers that it reuses, and is the loop both
+``tools/train_net.py`` and ``chip_smoke.py`` run. Data parallelism (the JAX shard_map step) waits
+for ROADMAP queue 1, 'Data parallelism'.
 """
 
 from __future__ import annotations
@@ -18,22 +33,24 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..export.captured import CudaGraphs, supports_graphs
 from ..models.meta import CenterMask, GroundTruth
 
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Metrics]
 
+# eager steps before a CUDA step is captured; at least one, so that the
+# graph records the momentum buffers' update and not their creation
+WARMUP_STEPS = 3
 
-def make_train_step(model: CenterMask, optimizer: torch.optim.Optimizer,
-                    scheduler) -> StepFn:
-    """Returns ``step(images, gt, draws=None, generator=None) -> metrics``:
-    the five losses and ``total_loss``, detached device scalars."""
 
-    def step(images: torch.Tensor, gt: GroundTruth,
-             draws: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> Metrics:
+def _step_body(model: CenterMask, optimizer, scheduler):
+    """One update from given draws: ``(images, gt, draws) -> metrics``."""
+
+    def body(images: torch.Tensor, gt: GroundTruth,
+             draws: Optional[torch.Tensor]) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
-        losses = model.loss(images, gt, draws=draws, generator=generator)
+        losses = model.loss(images, gt, draws=draws)
         total = sum(losses.values())
         total.backward()
         optimizer.step()
@@ -42,7 +59,130 @@ def make_train_step(model: CenterMask, optimizer: torch.optim.Optimizer,
         metrics["total_loss"] = total.detach()
         return metrics
 
+    return body
+
+
+def _draws(model: CenterMask, gt: GroundTruth,
+           generator: Optional[torch.Generator],
+           out: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """The sampler's uniforms of one step (None without the mask branch,
+    which draws none)."""
+    if not model.mask_on:
+        return None
+    shape = model.draws_shape(gt)
+    if out is not None:
+        return torch.rand(shape, generator=generator, out=out)
+    return torch.rand(shape, generator=generator, device=gt.valid.device)
+
+
+class CapturedTrainStep:
+    """The train step as one CUDA graph (the module docstring), called as
+    the eager step: ``(images, gt, draws=None, generator=None) ->
+    metrics``. The metrics are copies, valid after the next replay. The
+    tensors of the capturing call stay the graph's inputs, and a later
+    call writes its own into them: hand the capture no tensor that is
+    needed afterwards for anything else.
+    ``graphs``: the capturing object (``export/captured.py::CudaGraphs``
+    by default). ``capture_s``: the seconds the capture took."""
+
+    def __init__(self, model: CenterMask, optimizer, scheduler, *,
+                 graphs=None):
+        self.model = model
+        self.body = _step_body(model, optimizer, scheduler)
+        self.graphs = graphs if graphs is not None else CudaGraphs(
+            next(model.parameters()).device)
+        self.calls = 0
+        self.graph = None
+        self.static = None
+        self.out = None
+        self.capture_s = 0.0
+
+    def __call__(self, images: torch.Tensor, gt: GroundTruth,
+                 draws: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> Metrics:
+        if self.graph is None:
+            if draws is None:
+                draws = _draws(self.model, gt, generator)
+            if self.calls < WARMUP_STEPS:
+                self.calls += 1
+                return self.graphs.warm_up(
+                    lambda: self.body(images, gt, draws), 1)
+            t0 = time.perf_counter()
+            self.static = (images, *gt, draws)
+            self.graph, self.out = self.graphs.capture(
+                lambda: self.body(images, gt, draws))
+            self.capture_s = time.perf_counter() - t0
+        else:
+            for dst, src in zip(self.static[:-1], (images, *gt)):
+                if dst is not None and src is not dst:
+                    dst.copy_(src, non_blocking=True)
+            if draws is not None:
+                if draws is not self.static[-1]:
+                    self.static[-1].copy_(draws)
+            elif self.static[-1] is not None:
+                _draws(self.model, gt, generator, out=self.static[-1])
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def make_train_step(model: CenterMask, optimizer, scheduler, *,
+                    capture: Optional[bool] = None,
+                    graphs=None) -> StepFn:
+    """Returns ``step(images, gt, draws=None, generator=None) -> metrics``:
+    the five losses and ``total_loss``, detached device scalars. Without
+    ``draws`` the step draws the sampler's uniforms from ``generator``.
+    ``capture`` (default: on CUDA) returns a ``CapturedTrainStep``; else
+    the step runs eagerly. The optimizer's ``counted`` tensors (frozen
+    leaves that clipping by norm counts) get gradients from here on."""
+    for t in getattr(optimizer, "counted", ()):
+        t.requires_grad_(True)
+    if capture is None:
+        capture = supports_graphs(next(model.parameters()).device)
+    if capture:
+        return CapturedTrainStep(model, optimizer, scheduler, graphs=graphs)
+    body = _step_body(model, optimizer, scheduler)
+
+    def step(images: torch.Tensor, gt: GroundTruth,
+             draws: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Metrics:
+        if draws is None:
+            draws = _draws(model, gt, generator)
+        return body(images, gt, draws)
+
     return step
+
+
+class StaticBatch:
+    """Pinned host buffers and device buffers, one per batch key, reused
+    by every batch of the same shapes: a batch is written into the pinned
+    buffers and copied to the device without blocking the host. Before
+    the host writes the pinned buffers again it waits on an event behind
+    the previous copy (the device's copy of the previous step's batch),
+    so the host runs at most one step ahead."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = torch.device(dev)
+        self.host: Dict[str, torch.Tensor] = {}
+        self.device: Dict[str, torch.Tensor] = {}
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def __call__(self, arrays: Dict[str, np.ndarray]
+                 ) -> Dict[str, torch.Tensor]:
+        if self.copied is not None:
+            self.copied.synchronize()
+        for k, a in arrays.items():
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            h = self.host.get(k)
+            if h is None or h.shape != t.shape or h.dtype != t.dtype:
+                h = self.host[k] = torch.empty(t.shape, dtype=t.dtype,
+                                               pin_memory=True)
+                self.device[k] = torch.empty(t.shape, dtype=t.dtype,
+                                             device=self.dev)
+            h.copy_(t)
+            self.device[k].copy_(h, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        return {k: self.device[k] for k in arrays}
 
 
 def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -53,24 +193,33 @@ def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], dev: torch.device,
-                    s2d_input: bool = False
+                    s2d_input: bool = False,
+                    buffers: Optional[StaticBatch] = None
                     ) -> Tuple[torch.Tensor, GroundTruth]:
     """A ``train_batches`` batch -> (images, GroundTruth) on ``dev``. The
     images are the f32 normalized canvases, put in the s2d layout on the
-    host for an s2d-input model (as the JAX ``input_transform_for``)."""
+    host for an s2d-input model (as the JAX ``input_transform_for``).
+    With ``buffers`` (CUDA) the arrays go through its reused pinned and
+    device buffers, else each through a tensor of its own."""
     dev = torch.device(dev)
     images = batch["image"]
     if s2d_input:
         from ..data.preprocess import stem_space_to_depth
 
         images = stem_space_to_depth(images)
-    gt = GroundTruth(
-        boxes=_to_device(batch["gt_boxes"], dev),
-        classes=_to_device(batch["gt_classes"], dev),
-        valid=_to_device(batch["gt_valid"], dev),
-        mask_patches=_to_device(batch["gt_mask_patches"], dev),
-        image_sizes=_to_device(batch["image_size"].astype(np.float32), dev))
-    return _to_device(images, dev), gt
+    arrays = {"image": images, "gt_boxes": batch["gt_boxes"],
+              "gt_classes": batch["gt_classes"],
+              "gt_valid": batch["gt_valid"],
+              "gt_mask_patches": batch["gt_mask_patches"],
+              "image_size": batch["image_size"].astype(np.float32)}
+    if buffers is not None:
+        t = buffers(arrays)
+    else:
+        t = {k: _to_device(a, dev) for k, a in arrays.items()}
+    gt = GroundTruth(boxes=t["gt_boxes"], classes=t["gt_classes"],
+                     valid=t["gt_valid"], mask_patches=t["gt_mask_patches"],
+                     image_sizes=t["image_size"])
+    return t["image"], gt
 
 
 def train_loop(step: StepFn, batches: Iterable[Dict[str, np.ndarray]], *,
@@ -87,9 +236,11 @@ def train_loop(step: StepFn, batches: Iterable[Dict[str, np.ndarray]], *,
     step (checkpoints, evaluation, measurements), then ``storage.step()``.
     Returns the last step's metrics (device tensors)."""
     metrics = None
+    dev = torch.device(device)
+    buffers = StaticBatch(dev) if dev.type == "cuda" else None
     t0 = time.perf_counter()
     for it, batch in zip(range(start_iter, max_iter), batches):
-        images, gt = batch_to_device(batch, device, s2d_input)
+        images, gt = batch_to_device(batch, dev, s2d_input, buffers)
         metrics = step(images, gt, generator=generator)
         if (it + 1) % log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}

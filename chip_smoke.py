@@ -38,7 +38,16 @@ times the kernels and the end-to-end latency. Phases, in order:
             windows of a few seconds, twice, with host enqueue and CPU
             time beside the device events; a profiler breakdown of one
             bf16 800x1088 request.
-6. serving: the serving config (``zy_model_serving.yaml``) built with the
+6. graphs:  the flagship through ``export/captured.py::CapturedInference``
+            at 800x1088 and 1344x1344, bf16 and f32: launch counts at the
+            capture (warm-up + capture) and none at a replay, one launch
+            of each kernel per replay by the profiler, the f32 replay
+            against the eager request slot by slot, the bf16 one with
+            its worst difference; per-request ms (bf16) with the input's
+            and outputs' copies, host enqueue, device ms per replay and
+            idle share beside the eager medians of ``time``; capture
+            seconds and pool memory.
+7. serving: the serving config (``zy_model_serving.yaml``) built with the
             parameters of ``serve``: a 1333x800 uint8 image packed tight
             on the host, padded back and normalized on the device,
             ``torch.equal`` to the host's f32 s2d input; the s2d stem
@@ -54,35 +63,53 @@ times the kernels and the end-to-end latency. Phases, in order:
             one of these requests (f32 and bf16, pad-back, the three
             tight canvases, per-level); device ms per request as a CUDA
             graph at each tight canvas and at 1344x1344 pad-back, host
-            pack ms and bytes per request.
-7. eval:    ``evaluation/loop.py::evaluate_dataset`` over a synthetic COCO
+            pack ms and bytes per request. ``serve`` and ``serving`` count
+            the decode's top-k selections with a tie at the k-th place.
+8. eval:    ``evaluation/loop.py::evaluate_dataset`` over a synthetic COCO
             set of 8 ``.npy`` images (the three canvases; polygons over
             four categories, a crowd region): the ground truth fed back
-            scores AP 100.0 (bbox, segm); tight and full pack predictions
-            equal; tight compute gives every metric, finite; launch counts
-            read around each run; avg and steady ms per image.
-8. train:   the flagship trained at full width in bf16 (1344x1344, B = 2,
+            scores AP 100.0 (bbox, segm); the tight pack through the
+            loop's default (captured programs) and through
+            ``fn=model.inference`` (eager) and the full pack give equal
+            predictions; tight compute (a ``CapturedInference`` built
+            here: its graphs and pool memory) gives every metric, finite;
+            launch counts read around each run; avg and steady ms per
+            image of each.
+9. export:  ``export/aot.py`` artifacts of the uint8 s2d serving program
+            (tight landscape pack padded back to 1344x1344) and of the
+            f32-input 1344x1344 program, saved, loaded and run: outputs
+            against the eager request slot by slot, one launch of kernels
+            1 and 2 a call, export and load seconds, MB, GFLOPs.
+10. train:  the flagship trained at full width in bf16 (1344x1344, B = 2,
             20 gt boxes an image, synthetic batches in ``train_batches``'
-            format) through ``train/trainer.py::train_loop``: finite
-            losses; one launch of kernel 1, kernel 2 and kernel 2b per step
-            (counts read around every step); a step under sync-debug mode;
-            ms per step (CUDA events, median and quartiles after warm-up),
-            images per second, peak memory, the profiler's top kernels of
-            one step; the three kernels against their plain versions on
-            the inputs captured from a bf16 and an f32 step; kernel 2b
-            also on synthetic P3-P5 inputs (R = 0, ROIs outside the image,
-            stacked tiny boxes, ROIs all on P5, C = 200, (o, s) = (7, 2),
-            (14, 1), (5, 3)), each time launched twice with bit-equal
-            results and its prepass table equal to the CPU oracle's; the
-            f32 step
-            (TF32 off, deterministic cuDNN) through the kernels against
-            the same step through the plain versions: losses equal,
-            every gradient within 4x its noise floor; 20 bf16 steps on one
-            batch that bring the loss down; a checkpoint round trip and
-            one step after it equal to the step without it.
-9. result:  a ``{"kernels": [...]}`` line whose launches sum the counts
-            of ``serve``, ``serving``, ``eval`` and ``train``, then the last
-            line ``{"ok": true, "device": {...}}``.
+            format) through ``train/trainer.py::train_loop`` with the
+            captured step (3 eager warm-up steps, the capture, replays):
+            finite losses; one launch of kernel 1, kernel 2 and kernel 2b
+            per eager step and at the capture, none at a replay (counts
+            read around every step), one per replay by the profiler; a
+            replay under sync-debug mode; ms per step (CUDA events, median
+            and quartiles after the capture), images per second, peak
+            memory, the profiler's device time of one replay; then the
+            same for the eager step from the same weights,
+            with the profiler's top kernels of one step; the three
+            kernels against their plain versions on the inputs captured
+            from an eager bf16 and f32 step; kernel 2b also on synthetic
+            P3-P5 inputs (R = 0, ROIs outside the image, stacked tiny
+            boxes, ROIs all on P5, C = 200, (o, s) = (7, 2), (14, 1), (5,
+            3)), each time launched twice with bit-equal results and its
+            prepass table equal to the CPU oracle's; the f32 step (TF32
+            off, deterministic cuDNN) through the kernels against the same
+            step through the plain versions: losses equal, every gradient
+            within 4x its noise floor; three f32 steps captured against
+            the same steps eagerly; 20 bf16 steps of the captured step on
+            one batch that bring the loss down; a checkpoint round trip
+            into new objects and into the captured step's own tensors,
+            the step after it equal to the step without it.
+11. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+            of ``serve``, ``graphs``, ``serving``, ``eval``, ``export`` and
+            ``train`` (the launch functions' counts: eager launches and
+            captures, not replays), then the last line ``{"ok": true,
+            "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -291,6 +318,41 @@ def plain_kernels():
     return kernels_swapped(greedy_keep_sorted_plain,
                            multilevel_roi_align_plain,
                            roi_align_feature_grad_plain)
+
+
+@contextlib.contextmanager
+def topk_ties(counts: dict):
+    """Inside the block, count over the decode's top-k selections
+    (``models/fcos/outputs.py::topk_lowest_index_first``) the rows whose
+    k-th and (k+1)-th values are equal and a real candidate (> 0): a tie
+    that straddles the k-th place, where the rule for ties decides the
+    selected set. ``counts``: {"ties": [device counts], "rows": int}."""
+    from centermask2_tpu_torch.models.fcos import outputs
+
+    select = outputs.topk_lowest_index_first
+
+    def counted(x, k):
+        if k < x.shape[1]:
+            v = torch.sort(x, dim=1, descending=True, stable=True).values
+            counts["ties"].append(((v[:, k - 1] == v[:, k])
+                                   & (v[:, k - 1] > 0)).sum())
+        counts["rows"] += x.shape[0]
+        return select(x, k)
+
+    outputs.topk_lowest_index_first = counted
+    try:
+        yield counts
+    finally:
+        outputs.topk_lowest_index_first = select
+
+
+def log_ties(counts: dict, what: str) -> int:
+    ties = int(sum(int(t) for t in counts["ties"]))
+    log(f"  top-k boundary ties over {what}: {ties} of {counts['rows']} "
+        f"top-k selections (rows whose k-th and (k+1)-th candidate scores "
+        f"are equal; ties are taken lowest index first, as lax.top_k "
+        f"takes them)")
+    return ties
 
 
 def nms_row(sboxes, svalid, thr: float, what: str) -> dict:
@@ -634,10 +696,12 @@ def serve(dev):
     model.inference(images[0])  # warm-up: cuDNN handles, allocator
     torch.cuda.synchronize()
 
+    ties = {"ties": [], "rows": 0}
     _kernels.reset_launch_counts()
     for i, ((seed, H, W), img) in enumerate(zip(REQUESTS, images)):
         before = (_kernels.nms_launches, _kernels.roi_align_launches)
-        out = model.inference(img)
+        with topk_ties(ties):
+            out = model.inference(img)
         n = check_outputs(out, 1, K, f"request {i} {H}x{W}")
         after = (_kernels.nms_launches, _kernels.roi_align_launches)
         if (after[0] - before[0], after[1] - before[1]) != (1, 1):
@@ -646,6 +710,7 @@ def serve(dev):
             f"nms +1 roi_align +1, top score {float(out.scores.max()):.4f}")
     launches = {"nms": _kernels.nms_launches,
                 "roi_align": _kernels.roi_align_launches}
+    log_ties(ties, f"the {len(REQUESTS)} bf16 requests")
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -868,6 +933,248 @@ def profile_request(request, what: str) -> None:
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------- graphs
+# the CUDA kernels of each port kernel, as the profiler names them
+KERNEL_CUDA_FNS = {"nms": ("nms_mask_kernel", "nms_scan_kernel"),
+                   "roi_align": ("roi_align_kernel",),
+                   "roi_align_backward": ("roi_prepass_kernel",
+                                          "roi_align_backward_kernel")}
+GRAPH_REPLAYS = 5  # replays profiled for their kernel launches
+GRAPH_CANVASES = ((100, 800, 1088), (103, 1344, 1344))
+
+
+def replay_launches(run, n: int, kernels, what: str) -> int:
+    """Each port kernel of ``kernels`` launched once per call in ``n``
+    calls of ``run()``, counted by the profiler (a graph's replay does not
+    pass through the launch functions, so their counts cannot see it).
+    Raises on another count; returns the calls verified, 0 when the
+    profiler records no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    evs = []
+    if torch.cuda.is_available():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0]
+    if not evs:
+        log(f"  {what}: profiler recorded no device time; launches per "
+            "replay not measured")
+        return 0
+    got = {fn: sum(e.count for e in evs if fn in e.key)
+           for k in kernels for fn in KERNEL_CUDA_FNS[k]}
+    if set(got.values()) != {n}:
+        raise AssertionError(f"{what}: {n} calls launched {got}")
+    log(f"  {what}: the profiler counts each CUDA kernel of "
+        f"{', '.join(kernels)} once per call over {n} calls ({got})")
+    return n
+
+
+def pool_bytes(r0: int) -> int:
+    """Device memory reserved above ``r0`` once the allocator's free
+    blocks are released: what the live graphs' private pool holds."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() - r0
+
+
+def captured_window(prog, x_host, seconds: float) -> dict:
+    """Per-request ms at B = 1 through a captured program, each request
+    a new input copied from pinned host memory into the graph's input,
+    the replay, and the outputs copied into pinned host buffers, timed by
+    CUDA events, with the host's enqueue time; then the device ms per
+    replay alone (back to back, input already on the card)."""
+    host = []
+
+    def request():
+        out = prog(x_host)
+        if not host:
+            host.extend(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in out)
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+
+    for _ in range(3):
+        request()
+    torch.cuda.synchronize()
+    ms, enqueue = [], []
+    t_end = time.perf_counter() + seconds
+    while len(ms) < MIN_TIMED or time.perf_counter() < t_end:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        w0 = time.perf_counter()
+        request()
+        w1 = time.perf_counter()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        enqueue.append((w1 - w0) * 1e3)
+    x_dev = x_host.to(prog.device)
+    prog(x_dev)
+    torch.cuda.synchronize()
+    reps = 30
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        prog(x_dev)
+    b.record()
+    b.synchronize()
+    q1, q2, q3 = np.percentile(ms, [25, 50, 75])
+    return {"n": len(ms), "q1": q1, "median": q2, "q3": q3,
+            "enqueue": float(np.median(enqueue)),
+            "device": a.elapsed_time(b) / reps}
+
+
+def graphs_phase(dev, models, eager_ms: dict, canvases=GRAPH_CANVASES,
+                 graphs=None, timing: bool = True) -> dict:
+    """The ``[graphs]`` phase: the flagship through ``CapturedInference``
+    at each canvas, per dtype. Launch counts: WARMUP_CALLS + 1 of each
+    kernel at the first call of a canvas (the side-stream warm-up and the
+    capture), none at a replay; the profiler's count per replay; the f32
+    replay against the eager request slot by slot under ``E2E_TOL``, the
+    bf16 one with its worst difference printed; capture seconds, graphs
+    and pool memory; with ``timing``, per-request ms of bf16 requests
+    beside the eager medians of ``[time]`` (``eager_ms`` by (H, W)).
+    Returns the launches counted."""
+    from centermask2_tpu_torch.export import CapturedInference
+    from centermask2_tpu_torch.export.captured import WARMUP_CALLS
+    from centermask2_tpu_torch.ops import _kernels
+
+    dev = torch.device(dev)
+    card = card_line()
+    launches = {"nms": 0, "roi_align": 0}
+    for dtype_name, model in models.items():
+        short = "bf16" if dtype_name == "bfloat16" else "f32"
+        K = model.decode_kwargs["post_nms_topk"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+        prog = CapturedInference(model, graphs=graphs)
+        for seed, H, W in canvases:
+            img = make_image(seed, H, W, dev)
+            what = f"{short} {H}x{W}"
+            _kernels.reset_launch_counts()
+            out = prog(img)
+            first = _kernels.launch_counts()
+            _kernels.reset_launch_counts()
+            out = prog(img)
+            again = _kernels.launch_counts()
+            for k in launches:
+                launches[k] += first[k] + again[k]
+            if (first["nms"], first["roi_align"]) != (WARMUP_CALLS + 1,) * 2 \
+                    or (again["nms"], again["roi_align"]) != (0, 0):
+                raise AssertionError(f"graph {what}: launches {first} at the "
+                                     f"capture, {again} at a replay")
+            got = type(out)(*(t.clone() for t in out))
+            want, peak = eager_peak(lambda: model.inference(img))
+            if dtype_name == "float32":
+                n = compare_outputs(got, want, K,
+                                    f"f32 {H}x{W} replay vs eager")
+                log(f"  graph {what}: {n} valid slots, classes equal")
+            else:
+                check_outputs(got, 1, K, f"graph {what}")
+                worst = {f: float((getattr(got, f).double()
+                                   - getattr(want, f).double()).abs().max())
+                         for f in E2E_TOL}
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                log(f"  graph {what} replay vs eager: valid masks equal "
+                    f"{torch.equal(got.valid, want.valid)}, every output "
+                    f"bit-equal {same}; worst abs differences " + ", ".join(
+                        f"{f} {v:.3e}" for f, v in worst.items()))
+            log(f"  graph {what}: launches at the capture {first} "
+                f"({WARMUP_CALLS} warm-up requests + the capture), at a "
+                f"replay {again}; the eager request allocates at its peak "
+                f"{peak / 2 ** 20:.1f} MiB above its start")
+            replay_launches(lambda: prog(img), GRAPH_REPLAYS,
+                            ("nms", "roi_align"), f"graph {what} replays")
+            if timing and dtype_name == "bfloat16":
+                r = captured_window(prog, img.cpu().pin_memory(), WINDOW_S)
+                eager = eager_ms.get((H, W))
+                log(f"  graph {what}: {r['n']} requests, ms/img median "
+                    f"{r['median']:.3f} [q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] "
+                    f"with the input's and the outputs' copies, host enqueue "
+                    f"median {r['enqueue']:.3f}; device {r['device']:.3f} ms "
+                    f"per replay (idle share "
+                    f"{max(0.0, 1 - r['device'] / r['median']):.3f}); eager "
+                    f"median of [time] "
+                    + (f"{eager:.3f} ms" if eager else "not measured")
+                    + f" ({card})")
+        pool = pool_bytes(r0) if dev.type == "cuda" else 0
+        log(f"  {short}: {len(prog)} graphs captured in "
+            f"{prog.capture_s:.3f} s (warm-up included); their pool holds "
+            f"{pool / 2 ** 20:.1f} MiB ({card})")
+        del prog
+    if dev.type == "cuda" and "float32" in models:
+        f32_memory(models["float32"], make_image(*canvases[-1], dev), card)
+    return launches
+
+
+def eager_peak(run):
+    """``run()``'s result and the bytes allocated at its peak above its
+    start (0 without CUDA)."""
+    if not torch.cuda.is_available():
+        return run(), 0
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - a0
+
+
+def f32_memory(model, img, card: str) -> None:
+    """Where an f32 graph's pool comes from at the canvas of ``img``: the
+    largest allocations of one eager request with TF32 off (as the f32
+    gates run), by the line of the port that made them; then one graph
+    with cuDNN's default TF32, its pool beside the eager peak."""
+    from centermask2_tpu_torch.export import CapturedInference
+
+    H, W = img.shape[1:3]
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=100000,
+                                             stacks="python")
+    try:
+        model.inference(img)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    allocs = sorted((e for trace in snap["device_traces"] for e in trace
+                     if e["action"] == "alloc"), key=lambda e: -e["size"])
+    top = []
+    for e in allocs[:4]:
+        where = [f"{os.path.relpath(f['filename'], REPO)}:{f['line']}"
+                 for f in e.get("frames", ())
+                 if f["filename"].startswith(REPO)]
+        top.append(f"{e['size'] / 2 ** 20:.1f} MiB at "
+                   + " < ".join(where[:2]))
+    log(f"  f32 {H}x{W}, TF32 off: the eager request's largest "
+        f"allocations (of {len(allocs)}): " + "; ".join(top))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        peak = eager_peak(lambda: model.inference(img))[1]
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        prog = CapturedInference(model)
+        prog(img)
+        pool = pool_bytes(r0)
+        del prog
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log(f"  f32 {H}x{W} with cuDNN's default TF32: the eager request "
+        f"allocates at its peak {peak / 2 ** 20:.1f} MiB above its start; "
+        f"one graph's pool holds {pool / 2 ** 20:.1f} MiB ({card})")
+
+
 # --------------------------------------------------------------- serving
 FIXED = 1344  # the deployment canvas, TPU.FIXED_EDGE_SIZE
 SHORT = 800  # INPUT.MIN_SIZE_TEST, the serving canvas's short side
@@ -1069,11 +1376,13 @@ def serving(dev, models, cfg, fixed: int = FIXED, short: int = SHORT,
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
     captured = []
+    ties = {"ties": [], "rows": 0}
     for img, (x, hw, canvas) in zip(imgs, packs):
         for c in ((fixed, fixed), None):
             outs = []
-            seen = capture_kernel_inputs(lambda: outs.append(
-                model.inference(x, None, hw, c)))
+            with topk_ties(ties):
+                seen = capture_kernel_inputs(lambda: outs.append(
+                    model.inference(x, None, hw, c)))
             where = f"{img.shape[0]}x{img.shape[1]} " + (
                 f"{fixed}x{fixed} pad-back" if c else
                 f"{canvas[0]}x{canvas[1]} tight compute")
@@ -1086,6 +1395,7 @@ def serving(dev, models, cfg, fixed: int = FIXED, short: int = SHORT,
         raise AssertionError(f"{len(captured)} serving requests: launches "
                              f"{launches}")
     log(f"  {len(captured)} bf16 serving requests: launches {launches}")
+    log_ties(ties, f"the {len(captured)} bf16 serving requests")
     for seen, what in captured:
         check_captured(seen, what, errs)
     del captured, seen
@@ -1149,6 +1459,10 @@ def per_level_request(cfg, params_from, img, fixed: int, short: int, dev,
 EVAL_SHAPES = ((800, 1333), (1333, 800), (800, 800), (800, 1200),
                (1066, 800), (800, 1088), (1200, 800), (800, 800))
 EVAL_CATEGORIES = (1, 3, 18, 44)
+# images of the timed eval runs (the shapes in turn), and of the one the
+# host split profiles: the loop's steady rate over a few hundred requests
+EVAL_TIMED_IMAGES = 200
+EVAL_SPLIT_IMAGES = 64
 
 
 def _polygon(rng, x0, y0, bw, bh, kind: int):
@@ -1163,16 +1477,21 @@ def _polygon(rng, x0, y0, bw, bh, kind: int):
 
 
 def make_coco_dataset(root: str, shapes=EVAL_SHAPES, seed: int = 7,
-                      sides=(20, 64, 240)) -> str:
+                      sides=(20, 64, 240), n_images: int = 0) -> str:
     """A COCO-format dataset from a seed: uint8 BGR images as ``.npy``,
     and per image a small, a medium and a large polygon (boxes of about
     ``sides``, within 10%) over the categories in turn, plus one crowd
-    region in the first image. Returns the annotation json's path."""
+    region in the first image. ``n_images`` (default: one a shape) takes
+    the shapes in turn, the images of one shape sharing one file.
+    Returns the annotation json's path."""
     rng = np.random.RandomState(seed)
     images, anns = [], []
-    for i, (H, W) in enumerate(shapes, 1):
-        name = f"{i:012d}.npy"
-        np.save(os.path.join(root, name), u8_image(seed + i, H, W))
+    for i in range(1, (n_images or len(shapes)) + 1):
+        k = (i - 1) % len(shapes)
+        H, W = shapes[k]
+        name = f"{k + 1:012d}.npy"
+        if i == k + 1:
+            np.save(os.path.join(root, name), u8_image(seed + i, H, W))
         images.append({"id": i, "file_name": name, "height": H, "width": W})
         for j, side in enumerate(sides):
             bw, bh = side * (0.9 + 0.2 * rng.rand(2))
@@ -1227,66 +1546,265 @@ def check_ground_truth_ap(ann: str) -> dict:
     return ap
 
 
+def eval_host_split(run, n_images: int) -> None:
+    """The eval loop's host time by part, over one ``run(timed)`` of it:
+    each part of the loop wrapped by ``timed`` in a clock (preprocess:
+    read, resize and pack, in the prefetch thread; request: issuing it, a
+    replay or the eager forward; wait: the host waiting for a request's
+    outputs; postprocess: rescale and mask paste; evaluator: the RLE
+    encoding and records; metrics: the COCO evaluation at the end), ms an
+    image each, beside the run's wall time and, by the profiler, the
+    device's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from centermask2_tpu_torch.evaluation import loop
+    from centermask2_tpu_torch.evaluation.coco_eval import COCOEvaluator
+
+    spent = {}  # each part runs in one thread only
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[label] = spent.get(label, 0.0) \
+                    + time.perf_counter() - t0
+        return call
+
+    parts = ((loop, "preprocess_for_model", "preprocess"),
+             (loop, "detector_postprocess", "postprocess"),
+             (COCOEvaluator, "process", "evaluator"),
+             (COCOEvaluator, "evaluate", "metrics"),
+             (torch.cuda.Event, "synchronize", "wait"))
+    saved = [getattr(obj, name) for obj, name, _ in parts]
+    for (obj, name, label), fn in zip(parts, saved):
+        setattr(obj, name, timed(label, fn))
+    cuda = torch.cuda.is_available()
+    try:
+        with (profile(activities=[ProfilerActivity.CUDA]) if cuda
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            run(timed)
+            wall = time.perf_counter() - t0
+    finally:
+        for (obj, name, _), fn in zip(parts, saved):
+            setattr(obj, name, fn)
+    device = "not measured"
+    if cuda:
+        total = sum(e.device_time_total for e in prof.key_averages())
+        device = f"{total / 1e3 / n_images:.3f} ms/img"
+    log(f"  eval host split, one run of {n_images} images: wall "
+        f"{wall * 1e3 / n_images:.3f} ms/img (the metrics' evaluation "
+        f"included); host ms/img by part " + ", ".join(
+            f"{k} {v * 1e3 / n_images:.3f}" for k, v in sorted(spent.items()))
+        + f"; device kernel time {device} (profiler)")
+
+
 def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
                max_size: int = 1333, shapes=EVAL_SHAPES,
-               sides=(20, 64, 240)) -> dict:
-    """The ``[eval]`` phase: ``evaluate_dataset`` over a synthetic COCO set
-    in a temporary directory, read through ``np.load``. The tight and the
-    full pack must give equal predictions; tight compute must give finite
-    metrics under every key. Returns the launches of its requests."""
+               sides=(20, 64, 240), timed_images: int = EVAL_TIMED_IMAGES,
+               split_images: int = EVAL_SPLIT_IMAGES, graphs=None,
+               pipeline_depth: int = 2) -> dict:
+    """The ``[eval]`` phase: ``evaluate_dataset`` over synthetic COCO sets
+    in a temporary directory, read through ``np.load``.
+
+    Checks, over one image a shape: the tight pack padded back through
+    the loop's default (captured programs on CUDA) and through ``fn=
+    model.inference`` (eager), the full pack, and tight compute give
+    equal predictions (the first three) and finite metrics under every
+    key (the last); launches one a request eagerly and ``WARMUP_CALLS``
+    + 1 a graph when captured (warm-up and capture; a replay launches
+    nothing through the launch functions). The graphs of the pad-back,
+    full-pack and tight-compute programs (one a canvas met) are built
+    there, and each program's pool is read.
+
+    Times, over ``timed_images`` images (the shapes in turn): the
+    pad-back loop through its program, its graphs built before the
+    window, and eagerly, with equal predictions: avg ms/img (the loop's
+    wall over the images) and steady (the median interval between
+    completions); then the host split of the captured loop over
+    ``split_images``. ``graphs``: the programs' capturing object;
+    ``pipeline_depth``: the loop's (a capturing object whose replays
+    rewrite the outputs on the host at once needs 0). Returns the
+    launches counted."""
     import tempfile
 
+    from centermask2_tpu_torch.data import s2d_serving_canvas
     from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+    from centermask2_tpu_torch.export import (CapturedInference,
+                                              supports_graphs)
+    from centermask2_tpu_torch.export.captured import WARMUP_CALLS
     from centermask2_tpu_torch.ops import _kernels
 
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
     card = card_line()
+    n_tight = len({s2d_serving_canvas(h, w, fixed, min_size)
+                   for h, w in shapes})
+    by_default = supports_graphs(dev)
     launches = {"nms": 0, "roi_align": 0}
+    progs = {}
+    # (mode, the loop's arguments, graphs captured, the program of its
+    # own that the run builds, if any)
+    modes = (("tight pack, pad-back", {}, n_tight if by_default else 0,
+              None),
+             ("tight pack, pad-back, eager", {"fn": model.inference}, 0,
+              None),
+             ("full pack", {"tight": False}, 1 if by_default else 0, None),
+             ("tight compute", {"tight_compute": True}, n_tight,
+              "tight compute"),
+             ("tight pack, pad-back, program", {}, n_tight, "pad-back"),
+             ("full pack, program", {"tight": False}, 1, "full pack"))
     with tempfile.TemporaryDirectory() as root:
         ann = make_coco_dataset(root, shapes, sides=sides)
         check_ground_truth_ap(ann)
-        common = dict(ann=ann, image_root=root, fixed_size=fixed,
-                      min_size=min_size, max_size=max_size,
-                      progress_every=0, read_image=np.load)
+        common = dict(image_root=root, fixed_size=fixed, min_size=min_size,
+                      max_size=max_size, progress_every=0,
+                      read_image=np.load, pipeline_depth=pipeline_depth)
         runs = {}
-        for mode, kw in (("tight pack, pad-back", {}),
-                         ("full pack", {"tight": False}),
-                         ("tight compute", {"tight_compute": True})):
+        for mode, kw, n_graphs, name in modes:
+            if name is not None:  # its pool: the reserved memory it adds
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    r0 = torch.cuda.memory_reserved()
+                kw = dict(kw, fn=CapturedInference(model, graphs=graphs))
+                progs[name] = kw["fn"]
             _kernels.reset_launch_counts()
-            res, avg_ms, ev = evaluate_dataset(model, **kw, **common)
+            res, _, ev = evaluate_dataset(model, ann=ann, **kw, **common)
             got = {"nms": _kernels.nms_launches,
                    "roi_align": _kernels.roi_align_launches}
-            if set(got.values()) != {len(shapes)}:
-                raise AssertionError(f"eval {mode}: launches {got} for "
-                                     f"{len(shapes)} images")
+            want = (WARMUP_CALLS + 1) * n_graphs if n_graphs else len(shapes)
+            if set(got.values()) != {want}:
+                raise AssertionError(f"eval {mode}: launches {got}, {want} "
+                                     f"expected for {len(shapes)} images "
+                                     f"and {n_graphs} graphs")
             for k in launches:
                 launches[k] += got[k]
             runs[mode] = (res, ev)
+            how = (f"{n_graphs} captured programs, {want} launches of each "
+                   f"kernel at their warm-up and capture" if n_graphs else
+                   f"eager, one launch of each kernel a request")
             log(f"  eval {mode}: {len(shapes)} images, "
-                f"{len(ev.predictions)} predictions, avg {avg_ms:.3f} "
-                f"ms/img, steady {ev.steady_ms_per_image:.3f} ms/img "
-                f"(median completion interval), bbox AP "
-                f"{res['bbox']['AP']:.4f}, launches {got} ({card})")
-    tight, full = runs["tight pack, pad-back"][1], runs["full pack"][1]
-    if tight.predictions != full.predictions:
-        raise AssertionError("eval: tight and full pack predictions differ")
-    log(f"  eval: tight and full pack predictions equal "
-        f"({len(tight.predictions)})")
-    res = runs["tight compute"][0]
-    want = {"bbox": {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR1",
-                     "AR10", "AR100"}, "segm": None, "box_proposals": {
-                "AR@100", "ARs@100", "ARm@100", "ARl@100", "AR@1000",
-                "ARs@1000", "ARm@1000", "ARl@1000"}}
-    want["segm"] = want["bbox"]
-    for task, keys in want.items():
-        metrics = res.get(task, {})
-        missing = keys - set(metrics)
-        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
-        if missing or bad:
-            raise AssertionError(f"eval tight compute {task}: missing "
-                                 f"{sorted(missing)}, not finite {bad}")
-    log(f"  eval tight compute: every metric present and finite; segm AP "
-        f"{res['segm']['AP']:.4f}, AR@100 "
-        f"{res['box_proposals']['AR@100']:.4f}")
+                f"{len(ev.predictions)} predictions, bbox AP "
+                f"{res['bbox']['AP']:.4f}; {how}")
+            if name is not None:
+                prog = progs[name]
+                pool = pool_bytes(r0) if cuda else 0
+                log(f"  eval {name} program: {len(prog)} graphs (one a "
+                    f"canvas met) captured in {prog.capture_s:.3f} s "
+                    f"(warm-up included), pool {pool / 2 ** 20:.1f} MiB "
+                    f"({card})")
+        preds = [runs[m][1].predictions for m, _, _, _ in modes]
+        if not all(p == preds[0] for p in preds[1:3] + preds[4:]):
+            raise AssertionError("eval: the default, eager, full pack and "
+                                 "program predictions differ")
+        log(f"  eval: predictions of the default loop, the eager loop, the "
+            f"full pack and their programs equal ({len(preds[0])})")
+        res = runs["tight compute"][0]
+        want = {"bbox": {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR1",
+                         "AR10", "AR100"}, "segm": None, "box_proposals": {
+                    "AR@100", "ARs@100", "ARm@100", "ARl@100", "AR@1000",
+                    "ARs@1000", "ARm@1000", "ARl@1000"}}
+        want["segm"] = want["bbox"]
+        for task, keys in want.items():
+            metrics = res.get(task, {})
+            missing = keys - set(metrics)
+            bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+            if missing or bad:
+                raise AssertionError(f"eval tight compute {task}: missing "
+                                     f"{sorted(missing)}, not finite {bad}")
+        log(f"  eval tight compute: every metric present and finite; segm AP "
+            f"{res['segm']['AP']:.4f}, AR@100 "
+            f"{res['box_proposals']['AR@100']:.4f}")
+
+        # the loop's rate over many requests: the pad-back program's
+        # graphs are all built (every canvas of the shapes met above)
+        ann = make_coco_dataset(root, shapes, sides=sides,
+                                n_images=timed_images)
+        prog = progs["pad-back"]
+        built = len(prog)
+        got = {}
+        for mode, fn in (("captured", prog), ("eager", model.inference)):
+            res, avg_ms, ev = evaluate_dataset(model, ann=ann, fn=fn,
+                                               **common)
+            got[mode] = ev.predictions
+            log(f"  eval timed, {mode}, tight pack padded back: "
+                f"{timed_images} images, avg {avg_ms:.3f} ms/img (the "
+                f"loop's wall over the images), steady "
+                f"{ev.steady_ms_per_image:.3f} ms/img (median completion "
+                f"interval) ({card})")
+        if len(prog) != built or got["captured"] != got["eager"]:
+            raise AssertionError(f"eval timed: {len(prog) - built} graphs "
+                                 f"captured in the window; predictions "
+                                 f"equal {got['captured'] == got['eager']}")
+        log(f"  eval timed: no capture in the window; captured and eager "
+            f"predictions equal ({len(got['eager'])})")
+        eval_host_split(lambda timed: evaluate_dataset(
+            model, ann=ann, fn=timed("request", prog), limit=split_images,
+            **common), min(split_images, timed_images))
+    del progs, prog
+    return launches
+
+
+# ---------------------------------------------------------------- export
+def export_phase(dev, s2d_model, nhwc_model, fixed: int = FIXED,
+                 short: int = SHORT, image=(200, 800, 1333)) -> dict:
+    """The ``[export]`` phase: ``export/aot.py`` artifacts of the uint8 s2d
+    serving program over the tight landscape canvas padded back to
+    ``fixed`` (``s2d_model``) and of the f32-input program over the
+    ``fixed`` square (``nhwc_model``), saved, loaded and run once each:
+    one launch of kernels 1 and 2 a call, outputs equal to the eager
+    request slot by slot (``E2E_TOL``; bit-equality printed); export and
+    load seconds, artifact MB and GFLOPs printed. Returns the launches
+    counted."""
+    import tempfile
+
+    from centermask2_tpu_torch.export import (export_serialized,
+                                              inference_flops,
+                                              load_serialized)
+    from centermask2_tpu_torch.ops import _kernels
+
+    img = u8_image(*image)
+    x, hw, canvas = serving_inputs(img, fixed, short, dev)
+    nhwc = make_image(103, fixed, fixed, dev)
+    cases = (
+        (f"uint8 s2d serving program, tight {canvas[0]}x{canvas[1]} padded "
+         f"back to {fixed}x{fixed}", s2d_model, torch.uint8, (fixed, fixed),
+         (x, hw)),
+        (f"f32-input {fixed}x{fixed} program", nhwc_model, torch.float32,
+         None, (nhwc,)))
+    launches = {"nms": 0, "roi_align": 0}
+    with tempfile.TemporaryDirectory() as root:
+        for i, (what, model, dtype, cv, args) in enumerate(cases):
+            K = model.decode_kwargs["post_nms_topk"]
+            shape = tuple(args[0].shape)
+            t0 = time.perf_counter()
+            path = export_serialized(model, shape, os.path.join(
+                root, f"program{i}.pt2"), input_dtype=dtype, canvas_hw=cv)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            program = load_serialized(path)
+            load_s = time.perf_counter() - t0
+            flops = inference_flops(model, shape, input_dtype=dtype,
+                                    canvas_hw=cv)
+            _kernels.reset_launch_counts()
+            out = program(*args)
+            got = {k: _kernels.launch_counts()[k] for k in launches}
+            if set(got.values()) != {1}:
+                raise AssertionError(f"{what}: launches {got} in one call")
+            for k in launches:
+                launches[k] += got[k]
+            want = model.inference(args[0], None,
+                                   args[1] if len(args) > 1 else None, cv)
+            n = compare_outputs(out, want, K, f"{what} artifact vs eager")
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            log(f"  {what}: input {shape} {str(dtype)[6:]}, exported in "
+                f"{export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB, "
+                f"loaded in {load_s:.2f} s; {flops / 1e9:.1f} GFLOP a call "
+                f"(FlopCounterMode); one call: launches {got}, {n} valid "
+                f"slots, every output bit-equal to the eager request {same}")
     return launches
 
 
@@ -1353,11 +1871,13 @@ def make_train_batch(seed: int, batch: int, fixed: int, n_gt: int,
             "image_size": sizes}
 
 
-def build_trainer(cfg, dev, state=None):
+def build_trainer(cfg, dev, state=None, capture=None, graphs=None):
     """The flagship model, its optimizer and schedule and the train step
-    (``train/trainer.py::make_train_step``), random weights from seed 0
-    with the classification bias at ``TRAIN_CLS_BIAS``, or ``state``'s
-    parameters."""
+    (``train/trainer.py::make_train_step``: captured on CUDA unless
+    ``capture`` is False), random weights from seed 0 with the
+    classification bias at ``TRAIN_CLS_BIAS``, or ``state``'s
+    parameters. ``graphs(model, opt, sched)``, if given, makes the
+    capturing object of a captured step."""
     from centermask2_tpu_torch.train import (make_optimizer_from_cfg,
                                              make_train_step)
 
@@ -1367,7 +1887,10 @@ def build_trainer(cfg, dev, state=None):
     if state is not None:
         model.load_state_dict(state)
     opt, sched = make_optimizer_from_cfg(model, cfg)
-    return model, opt, sched, make_train_step(model, opt, sched)
+    if graphs is not None and capture is not False:
+        capture, graphs = True, graphs(model, opt, sched)
+    step = make_train_step(model, opt, sched, capture=capture, graphs=graphs)
+    return model, opt, sched, step
 
 
 def check_losses(metrics: dict, what: str) -> dict:
@@ -1684,9 +2207,11 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_train_step(run) -> None:
-    """Device time of one train step by the profiler, its largest CUDA
-    kernels, and the port's kernels in microseconds."""
+def profile_train_step(run, what: str = "bf16 train step"):
+    """Device time of one train step by the profiler against its wall
+    time, its largest CUDA kernels, and the port's kernels in
+    microseconds. Returns (device ms, wall ms), or None when the profiler
+    records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1697,47 +2222,200 @@ def profile_train_step(run) -> None:
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-           and getattr(e, "device_time_total", 0) > 0]
+    # the optimizer's step is also a range on the device's timeline
+    # ("Optimizer.step#..."), over kernels the sum counts already; the
+    # sum with those ranges (counted twice) is printed beside it
+    cuda = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+            and getattr(e, "device_time_total", 0) > 0]
+    evs = [e for e in cuda if not e.key.startswith("Optimizer.")]
     total = sum(e.device_time_total for e in evs) / 1e3
     if total == 0:
-        log("  profiler: no device time recorded (not measured)")
-        return
-    log(f"  profiler, one bf16 train step: device kernel time {total:.3f} ms "
+        log(f"  profiler, one {what}: no device time recorded (not "
+            "measured)")
+        return None
+    twice = sum(e.device_time_total for e in cuda) / 1e3
+    log(f"  profiler, one {what}: device kernel time {total:.3f} ms "
         f"in {wall:.3f} ms wall (device idle share "
-        f"{max(0.0, 1 - total / wall):.3f}, profiler on)")
+        f"{max(0.0, 1 - total / wall):.3f}, profiler on); with the "
+        f"optimizer's ranges counted too {twice:.3f} ms (idle share "
+        f"{max(0.0, 1 - twice / wall):.3f})")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:15]:
         log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for e in evs:
         if any(t in e.key for t in ("nms", "roi_")):
-            log(f"  profiler, port kernel in the train step: "
+            log(f"  profiler, port kernel in the {what}: "
                 f"{e.device_time_total / e.count:.3f} us per launch of "
                 f"{e.key.replace('(anonymous namespace)::', '')[:60]} "
                 f"(x{e.count})")
+    return total, wall
+
+
+def eval_beside_training(model, step, images, gt, draws, fixed: int,
+                         requests: int = 3) -> None:
+    """``tools/train_net``'s periodic evaluation: one ``CapturedInference``
+    of the training model, held for the whole run beside the captured
+    train step. Its graph (the full ``fixed`` canvas) is captured, its
+    pool read, then train steps and evaluation requests alternate with
+    both held: the process's reserved memory and its peak printed."""
+    from centermask2_tpu_torch.export import CapturedInference
+
+    dev = images.device
+    img = make_image(5, fixed, fixed, dev)
+    K = model.decode_kwargs["post_nms_topk"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    model.eval()
+    prog = CapturedInference(model)
+    prog(img)
+    model.train()
+    pool = pool_bytes(r0)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(requests):
+        check_losses(step(images, gt, draws), f"train step {i} beside eval")
+        model.eval()
+        check_outputs(prog(img), 1, K, f"eval request {i} beside training")
+        model.train()
+    torch.cuda.synchronize()
+    log(f"  train_net's evaluation program beside the captured train step: "
+        f"its {fixed}x{fixed} graph captured in {time.perf_counter() - t0:.3f}"
+        f" s, pool {pool / 2 ** 20:.1f} MiB; {requests} train steps and "
+        f"requests alternated with both held: reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB, peak reserved "
+        f"{torch.cuda.max_memory_reserved() / 2 ** 30:.3f} GiB, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"({card_line()})")
+    del prog
+    torch.cuda.empty_cache()
+
+
+def check_f32_captured_step(cfg, dev, state, steps_in, graphs=None) -> None:
+    """The f32 train step (TF32 off, deterministic cuDNN) captured against
+    the same step eagerly, step by step: ``WARMUP_STEPS`` eager warm-up
+    steps, then the capture and the replays, each from the state the
+    eager run had before that step (written into the captured step's own
+    tensors, as a restore writes a checkpoint). Over several steps the
+    runs part at the f32 rounding level between streams (the eager step
+    on a side stream does too), which the MaskIoU targets (masks
+    thresholded) amplify, so each step is compared from one state.
+    Equal losses and parameters expected bit for bit; else each loss
+    within GRAD_NOISE_FACTOR x the two eager runs' difference, at least
+    1e-6 of its value, and each parameter within GRAD_NOISE_FACTOR x the
+    larger of the two eager runs' difference and 1e-6 of the tensor's
+    largest value (a few f32 roundings), the rule of ``check_f32_step``.
+    Runs on ``steps_in``'s tensors, which the captured step adopts."""
+    import torch.utils._pytree as pytree
+
+    from centermask2_tpu_torch.checkpoint.torch_io import (
+        restore_train_state, train_state)
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
+
+    def snapshot(model, opt, sched):
+        return pytree.tree_map(
+            lambda t: t.detach().clone() if torch.is_tensor(t) else t,
+            train_state(model, opt, sched, 0))
+
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs, before = {}, []
+    try:
+        for name, capture in (("eager", False), ("eager again", False),
+                              ("captured", True)):
+            model, opt, sched, step = build_trainer(
+                cfg32, dev, state, capture=capture,
+                graphs=graphs if capture else None)
+            out = []
+            for i, args in enumerate(steps_in):
+                if name == "eager":
+                    before.append(snapshot(model, opt, sched))
+                elif capture and i >= WARMUP_STEPS:
+                    restore_train_state(before[i], model, opt, sched)
+                losses = check_losses(step(*args), f"f32 {name} step {i + 1}")
+                out.append((losses, {n: p.detach().clone()
+                                     for n, p in model.named_parameters()}))
+            runs[name] = out[WARMUP_STEPS:]
+            del model, opt, sched, step, out
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    del before
+    bit, worst, worst_name, eager_bit = True, 0.0, "", True
+    for i, ((lc, pc), (le, pe), (le2, pe2)) in enumerate(zip(
+            runs["captured"], runs["eager"], runs["eager again"])):
+        what = f"f32 captured step {WARMUP_STEPS + i + 1}"
+        for k in lc:
+            floor = max(GRAD_NOISE_FACTOR * abs(le[k] - le2[k]),
+                        1e-6 * abs(le[k]))
+            if not abs(lc[k] - le[k]) <= floor:
+                raise AssertionError(f"{what} {k}: {lc[k]!r} vs eager "
+                                     f"{le[k]!r}")
+        bit = bit and lc == le
+        eager_bit = eager_bit and le == le2
+        for n, p in pe.items():
+            d_eager = float((pe2[n] - p).abs().max())
+            floor = max(d_eager, 1e-6 * float(p.abs().max()), 1e-30)
+            d = float((pc[n] - p).abs().max())
+            bit = bit and d == 0
+            eager_bit = eager_bit and d_eager == 0
+            if d / floor > worst:
+                worst, worst_name = d / floor, f"{n} at step " \
+                    f"{WARMUP_STEPS + i + 1}"
+    if worst > GRAD_NOISE_FACTOR:
+        raise AssertionError(f"f32 captured step: {worst_name} at "
+                             f"{worst:.2f} x its floor")
+    n_pe = len(runs["eager"][0][1])
+    log(f"  f32 train step captured vs eager: the capture and "
+        f"{len(runs['captured']) - 1} replay(s) after {WARMUP_STEPS} eager "
+        f"warm-up steps, each from the eager run's state before it: losses "
+        f"and all {n_pe} parameters "
+        + ("bit-equal" if bit else
+           f"within {worst:.2f} x their floor ({worst_name}; tolerance "
+           f"{GRAD_NOISE_FACTOR} x)")
+        + f"; the two eager runs bit-equal {eager_bit}; last total loss "
+        f"{runs['captured'][-1][0]['total_loss']:.6f}")
 
 
 def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
                 n_gt: int = TRAIN_GT, warmup: int = TRAIN_WARMUP,
                 timed: int = TRAIN_TIMED, overfit: int = OVERFIT_STEPS,
-                sides=(16, 600), roi_rc=(256, 256), timing: bool = True):
-    """The ``[train]`` phase on the flagship config ``cfg``. Returns (the
-    launches of its ``train_loop`` steps by kernel, the worst kernel/plain
-    errors, kernel 2b's row or None without ``timing``)."""
+                sides=(16, 600), roi_rc=(256, 256), timing: bool = True,
+                graphs=None):
+    """The ``[train]`` phase on the flagship config ``cfg``, through the
+    captured train step (``graphs(model, opt, sched)`` makes its capturing
+    object where given; on CUDA by default) and, for comparison, the
+    eager one. Returns (the launches of its ``train_loop`` steps by
+    kernel, the worst kernel/plain errors, kernel 2b's row or None
+    without ``timing``)."""
     import itertools
     import tempfile
 
     from centermask2_tpu_torch.checkpoint.torch_io import (
         load_checkpoint, restore_train_state, save_checkpoint, train_state)
     from centermask2_tpu_torch.ops import _kernels
-    from centermask2_tpu_torch.train import batch_to_device, train_loop
+    from centermask2_tpu_torch.train import (CapturedTrainStep,
+                                             batch_to_device, train_loop)
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
 
+    dev = torch.device(dev)
     card = card_line()
     max_gt = cfg.TPU.MAX_GT_INSTANCES
     batches = [make_train_batch(300 + i, batch, fixed, n_gt, max_gt,
                                 sides=sides) for i in range(2)]
-    model, opt, sched, step = build_trainer(cfg, dev)
+    model, opt, sched, step = build_trainer(cfg, dev, graphs=graphs)
+    captured = isinstance(step, CapturedTrainStep)
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
@@ -1753,11 +2431,14 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
         events.append(ev)
         metrics_seen.append(metrics)
 
-    def read_launches(n_steps: int, what: str) -> None:
+    def read_launches(n_steps: int, what: str, eager_steps: int) -> None:
+        """One launch of each kernel in each of the first ``eager_steps``
+        steps (eager, or the warm-up and the capture of a captured step),
+        none in the later ones (replays)."""
         prev = {k: 0 for k in totals}
         for i, c in enumerate(counts):
             d = {k: c[k] - prev[k] for k in c}
-            if set(d.values()) != {1}:
+            if set(d.values()) != {int(i < eager_steps)}:
                 raise AssertionError(f"{what} step {i}: launches {d}")
             prev = c
         if len(counts) != n_steps:
@@ -1765,37 +2446,58 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
         for k in totals:
             totals[k] += counts[-1][k]
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    start_ev = torch.cuda.Event(enable_timing=True)
-    start_ev.record()
-    t0 = time.perf_counter()
-    train_loop(step, itertools.cycle(batches), device=dev, start_iter=0,
-               max_iter=warmup + timed, generator=gen, log_every=10 ** 9,
-               after_step=after_step, log=log)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    read_launches(warmup + timed, "train_loop")
-    ms = [a.elapsed_time(b) for a, b in zip(events[warmup - 1:],
-                                            events[warmup:])]
+    def loop(step_fn, n_steps, first_timed, what, eager_steps, cycle=True):
+        counts.clear()
+        events.clear()
+        metrics_seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_loop(step_fn, itertools.cycle(batches) if cycle
+                   else itertools.repeat(batches[0]), device=dev,
+                   start_iter=0, max_iter=n_steps, generator=gen,
+                   log_every=10 ** 9, after_step=after_step, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_launches(n_steps, what, eager_steps)
+        ms = [a.elapsed_time(b) for a, b in zip(events[first_timed - 1:],
+                                                events[first_timed:])]
+        return ms, wall, torch.cuda.max_memory_allocated()
+
+    # the main path: the captured step (3 eager warm-up steps, the capture,
+    # replays), timed after the capture
+    n_eager = WARMUP_STEPS + 1 if captured else warmup
+    ms, wall, peak = loop(step, n_eager + timed, n_eager, "train_loop",
+                          n_eager if captured else n_eager + timed)
     first = check_losses(metrics_seen[0], "step 1")
-    last = check_losses(metrics_seen[-1], f"step {warmup + timed}")
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  {warmup + timed} bf16 steps through train_loop at {fixed}x{fixed}"
-        f", B={batch}, {n_gt} gt an image: one launch of nms, roi_align and "
-        f"roi_align_backward per step ({totals}); losses finite, step 1 "
+    last = check_losses(metrics_seen[-1], f"step {n_eager + timed}")
+    how = (f"captured: one launch of nms, roi_align and roi_align_backward "
+           f"in each of the {WARMUP_STEPS} eager warm-up steps and at the "
+           f"capture, none through the launch functions at a replay"
+           if captured else "eager: one launch of each kernel per step")
+    log(f"  {n_eager + timed} bf16 steps through train_loop at "
+        f"{fixed}x{fixed}, B={batch}, {n_gt} gt an image, {how} ({totals}); "
+        f"losses finite, step 1 "
         + ", ".join(f"{k} {v:.4f}" for k, v in first.items())
-        + f"; step {warmup + timed} total {last['total_loss']:.4f}")
-    if timing:
+        + f"; step {n_eager + timed} total {last['total_loss']:.4f}")
+
+    def log_times(ms, wall, peak, n_steps, first_timed, what):
         q1, q2, q3 = np.percentile(ms, [25, 50, 75])
-        log(f"  ms per bf16 train step (CUDA events over {timed} steps after "
-            f"{warmup} of warm-up): median {q2:.3f} [q1 {q1:.3f}, q3 "
-            f"{q3:.3f}] min {min(ms):.3f} max {max(ms):.3f}; "
+        log(f"  ms per bf16 train step, {what} (CUDA events over "
+            f"{len(ms)} steps after {first_timed}): median {q2:.3f} [q1 "
+            f"{q1:.3f}, q3 {q3:.3f}] min {min(ms):.3f} max {max(ms):.3f}; "
             f"{batch / q2 * 1e3:.3f} images/s; loop wall "
-            f"{wall / (warmup + timed) * 1e3:.3f} ms/step with the first "
-            f"calls; peak memory {peak / 2 ** 30:.3f} GiB "
-            f"(max_memory_allocated) ({card})")
+            f"{wall / n_steps * 1e3:.3f} ms/step with the first calls; peak "
+            f"memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated) "
+            f"({card})")
+
+    if timing:
+        log_times(ms, wall, peak, n_eager + timed, n_eager,
+                  "captured" if captured else "eager")
+        if captured:
+            log(f"  the train step's capture took {step.capture_s:.3f} s "
+                f"(after {WARMUP_STEPS} eager warm-up steps)")
 
     images, gt = batch_to_device(batches[0], dev)
     draws = torch.rand((batch, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN + max_gt),
@@ -1807,10 +2509,30 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check_losses(metrics, "sync-debug step")
-    log("  a bf16 train step under sync-debug mode 'error', inputs on the "
-        "device: no host sync in the step")
+    log(f"  a bf16 train step ({'a replay' if captured else 'eager'}) under "
+        "sync-debug mode 'error', inputs on the device: no host sync")
+    if captured:
+        replay_launches(lambda: step(images, gt, draws), 3,
+                        ("nms", "roi_align", "roi_align_backward"),
+                        "train step replays")
+    if timing:
+        profile_train_step(lambda: step(images, gt, draws),
+                           "bf16 train step" + (", a replay" if captured
+                                                else ""))
+        if captured:
+            eval_beside_training(model, step, images, gt, draws, fixed)
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
 
-    seen = capture_step_inputs(lambda: step(images, gt, draws))
+    # the eager step beside it, from the same weights; its
+    # kernels held against their plain versions on its captured inputs
+    model, opt, sched, estep = build_trainer(cfg, dev, init_state,
+                                             capture=False)
+    ms, wall, peak = loop(estep, warmup + timed, warmup, "eager train_loop",
+                          warmup + timed)
+    if timing:
+        log_times(ms, wall, peak, warmup + timed, warmup, "eager")
+    seen = capture_step_inputs(lambda: estep(images, gt, draws))
     check_step_kernels(seen, "bf16 train step", errs)
     with torch.no_grad():
         check_roi_bwd_synthetic(dev, fixed, batch, *roi_rc, errs, timing)
@@ -1820,10 +2542,19 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
             nms_row(*seen["nms_keep_sorted"], "bf16 train step")
             roi_row(*seen["roi_align"], "bf16 train step")
             row = roi_bwd_row(seen["roi_align_backward"], "bf16 train step")
-        profile_train_step(lambda: step(images, gt, draws))
-    del seen
+        profile_train_step(lambda: estep(images, gt, draws),
+                           "bf16 train step, eager")
+    del seen, model, opt, sched, estep
+    torch.cuda.empty_cache()
 
     check_f32_step(cfg, dev, init_state, images, gt, draws, errs)
+    steps_in = []  # the warm-up, the capture and one more replay
+    for b in itertools.islice(itertools.cycle(batches), WARMUP_STEPS + 2):
+        x, g = batch_to_device(b, dev)
+        steps_in.append((x, g, torch.rand(draws.shape, generator=gen,
+                                          device=dev)))
+    check_f32_captured_step(cfg, dev, init_state, steps_in, graphs=graphs)
+    del steps_in
 
     # overfit one batch: BASE_LR 0.01, no warm-up, global-norm clip 1.0
     cfg_fit = cfg.clone()
@@ -1833,42 +2564,39 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     cfg_fit.SOLVER.CLIP_GRADIENTS.ENABLED = True
     cfg_fit.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
     cfg_fit.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
-    del model, opt, sched, step
-    torch.cuda.empty_cache()
-    model, opt, sched, step = build_trainer(cfg_fit, dev, init_state)
-    counts.clear()
-    metrics_seen.clear()
-    _kernels.reset_launch_counts()
-    train_loop(step, itertools.repeat(batches[0]), device=dev, start_iter=0,
-               max_iter=overfit, generator=gen, log_every=10 ** 9,
-               after_step=after_step, log=log)
-    read_launches(overfit, "overfit")
+    model, opt, sched, step = build_trainer(cfg_fit, dev, init_state,
+                                            graphs=graphs)
+    loop(step, overfit, 1, "overfit",
+         WARMUP_STEPS + 1 if captured else overfit, cycle=False)
     losses = [check_losses(m, f"overfit step {i + 1}")["total_loss"]
               for i, m in enumerate(metrics_seen)]
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"  overfit, {overfit} bf16 steps on one batch (BASE_LR 0.01, no "
-        f"warm-up, global-norm clip 1.0): total loss "
-        + " ".join(f"{v:.3f}" for v in losses)
+    log(f"  overfit, {overfit} bf16 steps on one batch through the "
+        f"{'captured' if captured else 'eager'} step (BASE_LR 0.01, no "
+        f"warm-up, global-norm clip 1.0, FrozenBN leaves counted in the "
+        f"norm): total loss " + " ".join(f"{v:.3f}" for v in losses)
         + f"; mean of the first 5 {head:.4f}, of the last 5 {tail:.4f}")
     if not tail < head:
         raise AssertionError(f"overfit: loss did not fall ({head} -> {tail})")
 
-    # checkpoint round trip: every tensor back, and the next step equal
+    # checkpoint round trip: every tensor back, and the next step equal,
+    # into new objects and into the captured step's own
+    def buffers(o):
+        return [t for st in o.state.values() for t in st.values()
+                if torch.is_tensor(t)]
+
     with tempfile.TemporaryDirectory() as root:
         path = save_checkpoint(root, train_state(model, opt, sched, overfit),
                                overfit)
         state = load_checkpoint(path)
-
-        def buffers(o):
-            return [t for st in o.state.values() for t in st.values()
-                    if torch.is_tensor(t)]
-
         before = {k: v.clone() for k, v in model.state_dict().items()}
         momentum = [t.clone() for t in buffers(opt)]
         epoch = sched.last_epoch
         ref = check_losses(step(images, gt, draws), "step before reload")
-        ref_delta = {k: model.state_dict()[k] - before[k] for k in before}
-        model2, opt2, sched2, step2 = build_trainer(cfg_fit, dev)
+        after = {k: v.clone() for k, v in model.state_dict().items()}
+        ref_delta = {k: after[k] - before[k] for k in before}
+        model2, opt2, sched2, step2 = build_trainer(cfg_fit, dev,
+                                                    graphs=graphs)
         if restore_train_state(state, model2, opt2, sched2) != overfit:
             raise AssertionError("checkpoint: step lost")
         restored = buffers(opt2)
@@ -1878,19 +2606,31 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
             all(torch.equal(a, b) for a, b in zip(restored, momentum)) and \
             sched2.last_epoch == epoch
         again = check_losses(step2(images, gt, draws), "step after reload")
+        live = [id(t) for t in buffers(opt)] + [id(sched.count)]
+        restore_train_state(state, model, opt, sched)
+        kept = live == [id(t) for t in buffers(opt)] + [id(sched.count)]
+        replay = check_losses(step(images, gt, draws), "replay after restore")
+        same_replay = replay == ref and all(
+            torch.equal(v, after[k]) for k, v in model.state_dict().items())
     delta = {k: model2.state_dict()[k] - before[k] for k in before}
     rel = max(float((delta[k] - ref_delta[k]).norm())
               / max(float(ref_delta[k].norm()), 1e-30)
               for k in delta if ref_delta[k].is_floating_point()
               and float(ref_delta[k].norm()) > 0)
-    if not same or again != ref or rel > 1e-2:
+    if not same or again != ref or rel > 1e-2 or not kept or \
+            not same_replay:
         raise AssertionError(f"checkpoint round trip: state equal {same}, "
-                             f"losses {ref} vs {again}, update rel {rel}")
+                             f"losses {ref} vs {again}, update rel {rel}; "
+                             f"restore into the step's tensors {kept}, its "
+                             f"next step equal {same_replay}")
     log(f"  checkpoint round trip on the card ({len(before)} model tensors, "
         f"momentum, schedule): state bit-equal; the step after reload gives "
         f"the same losses (total {again['total_loss']:.6f}) and an update "
-        f"within {rel:.2e} in relative norm of the step without it")
-    del model, model2, opt, opt2
+        f"within {rel:.2e} in relative norm of the step without it; restored "
+        f"into the {'captured' if captured else 'eager'} step's own tensors "
+        f"(the same momentum buffers and count), its next step repeats the "
+        f"step after the save bit for bit")
+    del model, model2, opt, opt2, step, step2
     torch.cuda.empty_cache()
     return totals, errs, row
 
@@ -1940,6 +2680,7 @@ def main() -> int:
         f"the canvases and dtypes; each a {WARMUP_S} s warm-up, then a "
         f"window of >= {WINDOW_S} s and >= {MIN_TIMED} requests ({card}; "
         f"{len(os.sched_getaffinity(0))} host CPUs)")
+    eager_ms = {}
     for p in range(1, PASSES + 1):
         for dtype_name, model in models.items():
             note = "bf16" if dtype_name == "bfloat16" else "f32, TF32 off"
@@ -1947,6 +2688,8 @@ def main() -> int:
                 H, W = img.shape[1:3]
                 clk = gpu_clocks()
                 r = latency_window(model, img)
+                if dtype_name == "bfloat16":
+                    eager_ms[(H, W)] = r["median"]
                 log(f"  pass {p} {H}x{W} {note}: {r['n']} requests after "
                     f"{r['warmup']} warm-up; ms/img median {r['median']:.3f} "
                     f"[q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] min {r['min']:.3f} "
@@ -1961,6 +2704,10 @@ def main() -> int:
                     "bf16 800x1088 request")
     torch.cuda.synchronize()
 
+    log("[graphs] the flagship through CapturedInference (one CUDA graph "
+        f"per canvas), bf16 and f32 (TF32 off) ({card})")
+    graph_launches = graphs_phase(dev, models, eager_ms)
+
     log("[serving] zy_model_serving.yaml: uint8 s2d tight packs, the s2d "
         "stem, the per-level decode, the same parameters as [serve]")
     s2d_model, serving_launches, per_level, errs = serving(dev, models,
@@ -1970,6 +2717,9 @@ def main() -> int:
     log("[eval] evaluate_dataset over a synthetic COCO set, serving model "
         "in bf16")
     eval_launches = eval_phase(dev, s2d_model)
+    log("[export] export/aot.py artifacts of the serving model and of the "
+        "flagship, saved, loaded and run")
+    export_launches = export_phase(dev, s2d_model, models["bfloat16"])
     del s2d_model, models
     torch.cuda.empty_cache()
 
@@ -1983,8 +2733,8 @@ def main() -> int:
 
     for row in (nms, roi, bwd):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
-            launches, serving_launches, per_level, eval_launches,
-            train_launches))
+            launches, graph_launches, serving_launches, per_level,
+            eval_launches, export_launches, train_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")

@@ -1,6 +1,6 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s ``[serving]``, ``[eval]`` and
-``[train]`` phases at a tiny size: a narrow V-19-slim model in f32 on
-canvases of 32-256 pixels, never the V-39.
+"""A CPU rehearsal of ``chip_smoke.py``'s ``[graphs]``, ``[serving]``,
+``[eval]``, ``[export]`` and ``[train]`` phases at a tiny size: a narrow
+V-19-slim model in f32 on canvases of 32-256 pixels, never the V-39.
 
 As the smoke run's own rehearsal does, the ops route to ``_kernels``,
 whose launches are replaced by the plain versions with the launch counts
@@ -8,7 +8,9 @@ kept (the ROIAlign backward included; kernel 2b's prepass check reads
 the CPU oracle of its windows), and the CUDA-only calls
 (synchronize, sync-debug mode, events, memory statistics, nvidia-smi)
 are faked; the CUDA-graph timing runs only on the card (``timing``
-off)."""
+off). The captured programs run through ``test_torch_captured.py``'s
+``FakeGraphs`` (a replay reruns the Python with the launch counts put
+back, as a graph's replay passes no launch function)."""
 
 import numpy as np
 import pytest
@@ -23,6 +25,11 @@ from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
 from centermask2_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
                                                  roi_align_feature_grad_plain,
                                                  roi_tap_windows)
+
+# the ops' own routes to the registered operators (the rehearsal fixture
+# routes them to _kernels' functions instead)
+OP_ROUTES = {(nms_mod, "_keep_sorted"): nms_mod._keep_sorted,
+             (roi_mod, "_forward"): roi_mod._forward}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -132,24 +139,106 @@ def test_serving_phase_rehearsal(rehearsal, capsys):
 
 
 def test_eval_phase_rehearsal(rehearsal, capsys):
+    """Three runs eager on the CPU (the loop's default there, ``fn=
+    model.inference``, the full pack), 4 launches each; tight compute and
+    the pad-back tight pack through captured programs of 3 graphs (their
+    3 canvases), the full pack through one of 1, 3 launches a graph (2
+    warm-up requests and the capture); the timed runs over 12 images
+    capture nothing more. Each request is postprocessed before the next
+    (``pipeline_depth`` 0), since a fake replay rewrites its outputs on
+    the host at once."""
+    from test_torch_captured import FakeGraphs
+
     cfg = _tiny_cfg(chip_smoke.serving_cfg())
     model = chip_smoke.build_model(cfg, "cpu")
     shapes = ((128, 250), (250, 128), (128, 128), (128, 200))
-    launches = chip_smoke.eval_phase("cpu", model, fixed=256, min_size=128,
-                                     max_size=250, shapes=shapes,
-                                     sides=(20, 64, 110))
-    assert launches == {"nms": 12, "roi_align": 12}
+    launches = chip_smoke.eval_phase(
+        "cpu", model, fixed=256, min_size=128, max_size=250, shapes=shapes,
+        sides=(20, 64, 110), timed_images=12, split_images=6,
+        graphs=FakeGraphs(), pipeline_depth=0)
+    assert launches == {"nms": 33, "roi_align": 33}
     out = capsys.readouterr().out
     assert "AP bbox 100.0000, segm 100.0000" in out
-    assert "tight and full pack predictions equal" in out
+    assert "predictions of the default loop, the eager loop, the full " \
+        "pack and their programs equal" in out
+    for name, n in (("tight compute", 3), ("pad-back", 3), ("full pack", 1)):
+        assert f"eval {name} program: {n} graphs (one a canvas met)" in out
     assert "every metric present and finite" in out
+    assert "eval timed, captured, tight pack padded back: 12 images" in out
+    assert "eval timed, eager, tight pack padded back: 12 images" in out
+    assert "no capture in the window; captured and eager predictions " \
+        "equal" in out
+    split = [x for x in out.splitlines() if "eval host split" in x]
+    assert len(split) == 1
+    for part in ("evaluator", "postprocess", "preprocess", "request"):
+        assert f" {part} " in split[0]
+
+
+def test_graphs_phase_rehearsal(rehearsal, capsys):
+    """``[graphs]`` at 64x64 and 96x64: per dtype and canvas, 3 launches
+    of each kernel at the first call (2 warm-up requests and the capture)
+    and none at a replay; the replays equal the eager requests."""
+    from test_torch_captured import FakeGraphs
+
+    model = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()),
+                                   "cpu")
+    launches = chip_smoke.graphs_phase(
+        "cpu", {"bfloat16": model, "float32": model}, {},
+        canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs(),
+        timing=False)
+    assert launches == {"nms": 12, "roi_align": 12}
+    out = capsys.readouterr().out
+    assert "f32 64x64 replay vs eager scores: max abs err 0.000e+00" in out
+    assert "graph bf16 96x64 replay vs eager: valid masks equal True, " \
+        "every output bit-equal True" in out
+    assert "launches at the capture {'nms': 3, 'roi_align': 3, " \
+        "'roi_align_backward': 0} (2 warm-up requests + the capture), at a " \
+        "replay {'nms': 0, 'roi_align': 0, 'roi_align_backward': 0}" in out
+    assert "2 graphs captured" in out
+
+
+def test_export_phase_rehearsal(rehearsal, capsys, monkeypatch):
+    """``[export]`` on the CPU at 64x64: the two artifacts load and run,
+    one launch of kernels 1 and 2 a call (the operators' CPU versions
+    counted here as the kernels' launches), equal to the eager request.
+    The ops call the registered operators, as they do on the card, so
+    that the export traces them."""
+    for (mod, name), fn in OP_ROUTES.items():
+        monkeypatch.setattr(mod, name, fn)
+    cfg = _tiny_cfg(chip_smoke.serving_cfg())
+    s2d = chip_smoke.build_model(cfg, "cpu")
+    nhwc = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()), "cpu")
+
+    def counted(plain, name):
+        def call(*args):
+            setattr(_kernels, name, getattr(_kernels, name) + 1)
+            return plain(*args)
+        return call
+
+    monkeypatch.setattr(nms_mod, "greedy_keep_sorted_plain", counted(
+        greedy_keep_sorted_plain, "nms_launches"))
+    monkeypatch.setattr(roi_mod, "multilevel_roi_align_plain", counted(
+        multilevel_roi_align_plain, "roi_align_launches"))
+    launches = chip_smoke.export_phase("cpu", s2d, nhwc, fixed=64, short=32,
+                                       image=(200, 32, 60))
+    assert launches == {"nms": 2, "roi_align": 2}
+    out = capsys.readouterr().out
+    assert "uint8 s2d serving program, tight 32x64 padded back to 64x64: " \
+        "input (1, 9, 17, 48) uint8" in out
+    assert "f32-input 64x64 program: input (1, 64, 64, 3) float32" in out
+    assert out.count("every output bit-equal to the eager request True") == 2
 
 
 def test_train_phase_rehearsal(rehearsal, capsys):
-    """``[train]`` at 64x64 with a narrow f32 model: the CLI's loop with
-    one launch of each kernel per step, the kernels held on captured
-    inputs, the kernel step against the plain step, the overfit, the
-    checkpoint round trip."""
+    """``[train]`` at 64x64 with a narrow f32 model: the CLI's loop through
+    the captured step (one launch of each kernel in each of its 3 warm-up
+    steps and at the capture, none at a replay) and the eager one (one a
+    step), the kernels held on captured inputs, the kernel step against
+    the plain step, the captured f32 step against the eager one, the
+    overfit, the checkpoint round trip into new objects and into the
+    captured step's own."""
+    from test_torch_captured import FakeGraphs, _state
+
     cfg = _tiny_cfg(chip_smoke.flagship_cfg())
     cfg.merge_from_list([
         "TPU.NMS_CANDIDATES", "50", "MODEL.FCOS.PRE_NMS_TOPK_TRAIN", "50",
@@ -158,13 +247,16 @@ def test_train_phase_rehearsal(rehearsal, capsys):
         "TPU.MAX_FG_PROPOSALS", "8", "TPU.MAX_GT_INSTANCES", "8"])
     launches, errs, row = chip_smoke.train_phase(
         "cpu", cfg, fixed=64, batch=2, n_gt=3, warmup=1, timed=2,
-        overfit=6, sides=(8, 40), roi_rc=(24, 8), timing=False)
-    # 3 loop steps, then 6 overfit steps
-    assert launches == {"nms": 9, "roi_align": 9, "roi_align_backward": 9}
+        overfit=6, sides=(8, 40), roi_rc=(24, 8), timing=False,
+        graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)))
+    # the captured loop (3 warm-up steps, the capture, 2 replays): 4; the
+    # eager loop of 3 steps: 3; the captured overfit of 6 steps: 4
+    assert launches == {"nms": 11, "roi_align": 11, "roi_align_backward": 11}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     assert row is None
     out = capsys.readouterr().out
-    assert "one launch of nms, roi_align and roi_align_backward per step" in out
+    assert "captured: one launch of nms, roi_align and roi_align_backward " \
+        "in each of the 3 eager warm-up steps and at the capture" in out
     for what in ("bf16 train step", "f32 train step"):
         assert f"nms {what}: N=" in out and "keep sets bit-equal" in out
         assert f"roi_align_backward {what}: float32" in out
@@ -181,10 +273,15 @@ def test_train_phase_rehearsal(rehearsal, capsys):
                  "float32 R=24 C=200 o=7 s=2", "bfloat16 R=24 C=200 o=14 s=1",
                  "float32 R=24 C=8 o=5 s=3"):
         assert what in out
-    assert "no host sync in the step" in out
+    assert "(a replay) under sync-debug mode 'error', inputs on the " \
+        "device: no host sync" in out
+    assert "f32 train step captured vs eager: the capture and 1 replay(s) " \
+        "after 3 eager warm-up steps, each from the eager run's state " \
+        "before it: losses and all" in out and "bit-equal;" in out
     assert "f32 train step, kernels vs plain: " in out
     assert "largest difference between the two kernel runs 0.0e+00" in out
     assert "checkpoint round trip on the card" in out
+    assert "restored into the captured step's own tensors" in out
 
 
 def test_train_batch_format():

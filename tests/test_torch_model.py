@@ -226,3 +226,61 @@ def test_decode_matches_jax():
     np.testing.assert_allclose(got.pred_boxes.numpy()[valid],
                                np.asarray(want.pred_boxes)[valid],
                                rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("branch", ["fused", "per-level"])
+def test_decode_boundary_tie_matches_jax(branch):
+    """A tie planted across the k-th place of both top-k stages: 40
+    locations of P3 share one best-class score, more than the 12
+    candidates (fused) or the 12 a level (per-level) that the decode
+    keeps. The port takes them lowest index first, as ``lax.top_k`` does
+    on the CPU: the same candidate set, the same output slots and scores
+    as JAX (scores within 1e-6 relative, boxes 1e-5 absolute)."""
+    from centermask2_tpu.models.fcos import outputs as jout
+    from centermask2_tpu_torch.models.fcos import outputs as tout
+
+    C, strides = 3, (8, 16, 32, 64, 128)
+    shapes = [(-(-128 // s), -(-160 // s)) for s in strides]
+    logits = [np.full((1, C, h, w), -8.0, np.float32) for h, w in shapes]
+    # 40 tied P3 locations, every other one along the first rows, class 1;
+    # their class 0 and 2 scores tie below them
+    tied = np.arange(0, 80, 2)
+    flat = logits[0].reshape(C, -1)
+    flat[1, tied] = 1.0
+    flat[0, tied] = 0.5
+    flat[2, tied] = 0.5
+    flat[1, 101:103] = 2.0  # two untied candidates above the tie
+    reg = [np.full((1, 4, h, w), 0.2, np.float32) for h, w in shapes]
+    ctr = [np.full((1, 1, h, w), 3.0, np.float32) for h, w in shapes]
+    kw = dict(pre_nms_thresh=0.3, nms_thresh=0.6, post_nms_topk=40)
+    kw.update(dict(pre_nms_topk=1000, nms_candidates=12) if branch == "fused"
+              else dict(pre_nms_topk=12, nms_candidates=30))
+
+    def hwc(x):  # (1, C, H, W) -> (H*W, C)
+        return jnp.asarray(np.transpose(x[0], (1, 2, 0)).reshape(
+            -1, x.shape[1]))
+
+    want = jout.decode_single_image(
+        jout.compute_locations(shapes, strides), [hwc(x) for x in logits],
+        [hwc(x) for x in reg], [hwc(x)[:, 0] for x in ctr], strides, **kw)
+    got = tout.decode_single_image(
+        tout.compute_locations(shapes, strides, torch.device("cpu")),
+        [torch.from_numpy(x) for x in logits],
+        [torch.from_numpy(x) for x in reg],
+        [torch.from_numpy(x) for x in ctr], strides, **kw)
+    valid = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    assert valid.sum() == 12
+    for f in ("pred_classes", "locations"):
+        np.testing.assert_array_equal(getattr(got, f).numpy()[valid],
+                                      np.asarray(getattr(want, f))[valid])
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.pred_boxes.numpy()[valid],
+                               np.asarray(want.pred_boxes)[valid],
+                               rtol=1e-6, atol=1e-5)
+    # the tied candidates kept are the lowest-index ones: the 10 first
+    locs = got.locations.numpy()[valid]
+    w3 = shapes[0][1]
+    idx = sorted((locs[:, 1] // 8) * w3 + locs[:, 0] // 8)
+    assert [int(i) for i in idx] == list(range(0, 20, 2)) + [101, 102]

@@ -402,9 +402,11 @@ def test_convert_checkpoint_matches_jax():
                                atol=2e-2)
     np.testing.assert_allclose(res.pred_masks[0][:n].numpy(),
                                np.asarray(out.pred_masks[0])[:n], atol=2e-3)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="The other backbones and norms"):
         tconv.convert_checkpoint(sd, backbone="resnet")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="Deformable conv, keypoints, adaptive"):
         tconv.convert_checkpoint(
             {**sd, "roi_heads.keypoint_head.conv_fcn1.weight": np.zeros(1)},
             conv_body="V-19-slim-eSE")

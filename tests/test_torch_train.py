@@ -214,13 +214,28 @@ TINY_OPTS = [
     "DATALOADER.NUM_WORKERS", "1"]
 
 
-def test_train_net_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
+def test_train_net_cli_trains_checkpoints_and_resumes(tmp_path, capsys,
+                                                      monkeypatch):
+    """Two steps, a checkpoint, a resume to step 3. The loader is seeded
+    with SEED alone, as the JAX CLI seeds it: the resumed run's first
+    batch is the fresh run's first batch."""
     import json
 
     from test_torch_data import make_train_dataset
 
+    from centermask2_tpu_torch.data import coco
     from centermask2_tpu_torch.tools import train_net
 
+    firsts = []
+    batches = coco.train_batches
+
+    def recorded(*args, **kwargs):
+        for i, b in enumerate(batches(*args, **kwargs)):
+            if i == 0:
+                firsts.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    monkeypatch.setattr(coco, "train_batches", recorded)
     ann, root = make_train_dataset(tmp_path / "ds")
     out = tmp_path / "out"
     common = ["--device", "cpu", "--ann", ann, "--image-root", root,
@@ -242,6 +257,9 @@ def test_train_net_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
     state = load_checkpoint(str(out / "checkpoints" / "step_3"))
     assert state["step"] == 3 and state["scheduler"]["last_epoch"] == 3
+    assert len(firsts) == 2 and firsts[0].keys() == firsts[1].keys()
+    for k, v in firsts[0].items():
+        np.testing.assert_array_equal(firsts[1][k], v, err_msg=k)
 
 
 def test_train_net_defaults_to_cuda(monkeypatch, tmp_path):
