@@ -2,14 +2,18 @@
 ``centermask2_tpu/checkpoint/convert_torch.py``).
 
 Maps the reference checkpoint key schema (detectron2 GeneralizedRCNN with
-VoVNet/FPN/FCOS/CenterROIHeads submodules; names from reference
-vovnet.py:110-236, fcos.py:185-220, sam.py:56-97, maskiou_head.py:76-105)
+VoVNet, ResNet or MobileNetV2/FPN/FCOS/CenterROIHeads submodules; names
+from reference vovnet.py:110-236, mobilenet.py:22-116, detectron2's
+resnet.py, fcos.py:185-220, sam.py:56-97, maskiou_head.py:76-105)
 onto the JAX package's parameter tree of numpy arrays, which
 ``checkpoint/from_jax.py::load_jax_params`` then loads into the port:
 
     sd = load_torch_checkpoint("centermask2-V-39-eSE-FPN-ms-3x.pth")
     tree, report = convert_checkpoint(sd, conv_body="V-39-eSE")
     load_jax_params(model, tree)
+
+(``backbone="resnet"`` with ``resnet_depth``, or ``backbone="mobilenet"``,
+for the other families.)
 
 Weight transforms:
 - conv     (O, I, kh, kw)  -> (kh, kw, I, O)
@@ -21,10 +25,10 @@ Weight transforms:
   the weight columns are permuted accordingly.
 
 Missing and unused keys are reported, not fatal (the check_keys contract
-of deploy_utils.py:31-43). The ResNet and MobileNet backbones (ROADMAP
-queue 1, 'The other backbones and norms') and the keypoint head
-('Deformable conv, keypoints, adaptive ROIAlign') raise
-``NotImplementedError``.
+of deploy_utils.py:31-43). The keypoint head (ROADMAP queue 1,
+'Deformable conv, keypoints, adaptive ROIAlign') raises
+``NotImplementedError``. As in the JAX converter, FPN norms are not
+converted.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from ..models.backbones.mobilenet import INVERTED_RESIDUAL_SETTING
+from ..models.backbones.resnet import RESNET_STAGE_BLOCKS
 from ..models.backbones.vovnet import STAGE_SPECS
 
 BN_EPS = 1e-5
@@ -148,24 +154,79 @@ def _strip_prefixes(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def convert_vovnet(cv: Converter, tpre: str, fpre: str, spec: Dict) -> None:
-    """Standard-conv VoVNet; tpre e.g. 'backbone.bottom_up.', fpre e.g.
-    'backbone/'."""
+    """tpre e.g. 'backbone.bottom_up.', fpre e.g. 'backbone/'."""
+    depthwise = spec["dw"]
+
     def conv_norm(tname: str, fname: str):
         cv.conv(f"{tpre}{tname}/conv", f"{fpre}{fname}/conv", bias=False)
         cv.frozen_bn(f"{tpre}{tname}/norm", f"{fpre}{fname}/norm")
 
-    # stem (vovnet.py:432-436)
-    for i in (1, 2, 3):
-        conv_norm(f"stem.stem_{i}", f"stem_{i}")
+    def dw_block(tname: str, fname: str):
+        cv.conv(f"{tpre}{tname}/dw_conv3x3", f"{fpre}{fname}/dw_conv",
+                bias=False)
+        cv.conv(f"{tpre}{tname}/pw_conv1x1", f"{fpre}{fname}/pw_conv",
+                bias=False)
+        cv.frozen_bn(f"{tpre}{tname}/pw_norm", f"{fpre}{fname}/pw_norm")
+
+    # stem (vovnet.py:432-436); stem_1 is a standard conv in every body
+    conv_norm("stem.stem_1", "stem_1")
+    for i in (2, 3):
+        (dw_block if depthwise else conv_norm)(f"stem.stem_{i}", f"stem_{i}")
     for i in range(4):
         stage = i + 2
         for b in range(spec["block_per_stage"][i]):
             mod = f"OSA{stage}_{b + 1}"
             tmod = f"stage{stage}.{mod}"
+            if depthwise:
+                # the reduction exists when in_ch != stage_ch (first block)
+                conv_norm(f"{tmod}.conv_reduction.{mod}_reduction_0",
+                          f"{mod}/reduction")
             for l in range(spec["layer_per_block"]):
-                conv_norm(f"{tmod}.layers.{l}.{mod}_{l}", f"{mod}/layer{l}")
+                (dw_block if depthwise else conv_norm)(
+                    f"{tmod}.layers.{l}.{mod}_{l}", f"{mod}/layer{l}")
             conv_norm(f"{tmod}.concat.{mod}_concat", f"{mod}/concat")
             cv.conv(f"{tpre}{tmod}.ese.fc", f"{fpre}{mod}/ese/fc")
+
+
+def convert_resnet(cv: Converter, tpre: str, fpre: str,
+                   depth: int = 50) -> None:
+    """detectron2 ResNet keys (stem.conv1, res{s}.{b}.conv{1..3}[.norm],
+    res{s}.{b}.shortcut) -> the JAX tree (stem_conv1, res{s}_{b}/conv{c},
+    shortcut)."""
+    def conv_norm(tname: str, fname: str):
+        cv.conv(f"{tpre}{tname}", f"{fpre}{fname}/conv", bias=False)
+        cv.frozen_bn(f"{tpre}{tname}.norm", f"{fpre}{fname}/norm")
+
+    conv_norm("stem.conv1", "stem_conv1")
+    for i, n_blocks in enumerate(RESNET_STAGE_BLOCKS[depth]):
+        stage = i + 2
+        for b in range(n_blocks):
+            for c in (1, 2, 3):
+                conv_norm(f"res{stage}.{b}.conv{c}", f"res{stage}_{b}/conv{c}")
+            if b == 0:
+                conv_norm(f"res{stage}.{b}.shortcut",
+                          f"res{stage}_{b}/shortcut")
+
+
+def convert_mobilenet(cv: Converter, tpre: str, fpre: str) -> None:
+    """Reference MobileNetV2 keys (mobilenet.py:22-116: features.0 =
+    Sequential(Conv2d, FrozenBN); features.{1..17}.conv = Sequential of
+    pw/dw/pw-linear convs each followed by FrozenBN, the pw omitted when
+    expand_ratio == 1) -> the JAX tree (features0_conv/bn stem,
+    features{i}/conv{j}/bn{j} blocks)."""
+    cv.conv(f"{tpre}features.0.0", f"{fpre}features0_conv", bias=False)
+    cv.frozen_bn(f"{tpre}features.0.1", f"{fpre}features0_bn")
+    idx = 0
+    for t, c, n, s in INVERTED_RESIDUAL_SETTING:
+        for _ in range(n):
+            idx += 1
+            # torch Sequential indices of the convs (a FrozenBN after each)
+            seq = (0, 3, 6) if t != 1 else (0, 3)
+            for j, sq in enumerate(seq):
+                cv.conv(f"{tpre}features.{idx}.conv.{sq}",
+                        f"{fpre}features{idx}/conv{j}", bias=False)
+                cv.frozen_bn(f"{tpre}features.{idx}.conv.{sq + 1}",
+                             f"{fpre}features{idx}/bn{j}")
 
 
 def convert_fpn(cv: Converter, tpre: str, fpre: str, stages=(3, 4, 5),
@@ -239,12 +300,11 @@ def convert_checkpoint(
     fpn_stages=(3, 4, 5),
     top_levels: int = 2,
     backbone: str = "vovnet",
+    resnet_depth: int = 50,
 ) -> Tuple[Dict[str, Any], Dict[str, List[str]]]:
-    """Full-model conversion. Returns (params_tree, report)."""
-    if backbone != "vovnet" or conv_body not in STAGE_SPECS:
-        raise NotImplementedError(
-            f"converting the {backbone} backbone {conv_body!r} is not ported "
-            "yet (ROADMAP queue 1, 'The other backbones and norms')")
+    """Full-model conversion. Returns (params_tree, report).
+    ``backbone``: "vovnet" (the body ``conv_body``), "resnet" (of
+    ``resnet_depth``) or "mobilenet"."""
     sd = _strip_prefixes(state_dict)
     if any(k.startswith("roi_heads.keypoint_head.") for k in sd):
         raise NotImplementedError(
@@ -255,7 +315,12 @@ def convert_checkpoint(
     # backbone-only checkpoints (vovnet39_ese_detectron2.pth) have bare keys
     bpre = "backbone.bottom_up." if any(
         k.startswith("backbone.bottom_up.") for k in sd) else ""
-    convert_vovnet(cv, bpre, "backbone/", STAGE_SPECS[conv_body])
+    if backbone == "resnet":
+        convert_resnet(cv, bpre, "backbone/", resnet_depth)
+    elif backbone == "mobilenet":
+        convert_mobilenet(cv, bpre, "backbone/")
+    else:
+        convert_vovnet(cv, bpre, "backbone/", STAGE_SPECS[conv_body])
     convert_fpn(cv, "backbone.", "fpn/", fpn_stages, top_levels)
     convert_fcos_head(
         cv, "proposal_generator.fcos_head.", "fcos_head/",

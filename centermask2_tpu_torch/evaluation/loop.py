@@ -87,7 +87,7 @@ def evaluate_dataset(
     (normalized on the device), over the quantized TIGHT canvas
     (``tight``, default on) and padded back to (fixed_size, fixed_size)
     there, or over the full canvas (``tight=False``): equal outputs.
-    ``tight_compute`` (s2d only) runs each request at its tight canvas
+    ``tight_compute`` (s2d only; raises otherwise) runs each request at its tight canvas
     instead (at most 4 canvases); the canvas then reaches the numbers
     through the eSE global pool, receptive-field bleed past the image
     edge and the default image size of ROI level assignment, as
@@ -107,7 +107,10 @@ def evaluate_dataset(
         fn = CapturedInference(model) if supports_graphs(dev) \
             else model.inference
     s2d = bool(getattr(model, "s2d_input", False))
-    tight_compute = bool(tight_compute) and s2d
+    if tight_compute and not s2d:
+        raise ValueError("tight_compute runs the s2d serving pack at its "
+                         "tight canvas: it needs an s2d-input model "
+                         "(TPU.S2D_STEM_INPUT, a VoVNet backbone)")
     tight = (s2d if tight is None else bool(tight) or tight_compute) and s2d
     canvas = None if tight_compute else (fixed_size, fixed_size)
 

@@ -6,9 +6,12 @@ Stem of 3 convs at strides 2/1/2, either on the image or, with
 factor-4 s2d input (``s2d_stem_forward``); OSA modules (input + k
 sequential 3x3 convs concatenated, 1x1 aggregate, eSE gate, identity
 residual on non-first blocks), and a ceil-mode 3x3/s2 max-pool opening
-stages 3-5. Only the standard-conv bodies are ported here; the
-depthwise bodies and DCN stages raise ``NotImplementedError`` (ROADMAP
-queue 1, items 11 and 12).
+stages 3-5. The depthwise bodies (``V-19-*dw-eSE``) take depthwise
+blocks (3x3 depthwise, 1x1 pointwise, the norm after the pointwise conv)
+for stem_2, stem_3 and every OSA layer, with a 1x1 reduction where an
+OSA module's input width differs from its stage width. DCN stages are
+not ported (ROADMAP queue 1, 'Deformable conv, keypoints, adaptive
+ROIAlign').
 """
 
 from __future__ import annotations
@@ -20,10 +23,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import ConvNormAct, eSEModule, max_pool2d_ceil
+from ...layers import (Conv2d, ConvNormAct, eSEModule, get_norm,
+                       max_pool2d_ceil)
 
-# Stage specs of the standard-conv bodies (reference vovnet.py:30-108,
-# JAX vovnet.py:43-72).
+# Stage specs (reference vovnet.py:30-108, JAX vovnet.py:35-72).
+VoVNet19_slim_dw_eSE = dict(
+    stem=[64, 64, 64], stage_conv_ch=[64, 80, 96, 112],
+    stage_out_ch=[112, 256, 384, 512], layer_per_block=3,
+    block_per_stage=[1, 1, 1, 1], eSE=True, dw=True)
+VoVNet19_dw_eSE = dict(
+    stem=[64, 64, 64], stage_conv_ch=[128, 160, 192, 224],
+    stage_out_ch=[256, 512, 768, 1024], layer_per_block=3,
+    block_per_stage=[1, 1, 1, 1], eSE=True, dw=True)
 VoVNet19_slim_eSE = dict(
     stem=[64, 64, 128], stage_conv_ch=[64, 80, 96, 112],
     stage_out_ch=[112, 256, 384, 512], layer_per_block=3,
@@ -46,6 +57,8 @@ VoVNet99_eSE = dict(
     block_per_stage=[1, 3, 9, 3], eSE=True, dw=False)
 
 STAGE_SPECS = {
+    "V-19-slim-dw-eSE": VoVNet19_slim_dw_eSE,
+    "V-19-dw-eSE": VoVNet19_dw_eSE,
     "V-19-slim-eSE": VoVNet19_slim_eSE,
     "V-19-eSE": VoVNet19_eSE,
     "V-39-eSE": VoVNet39_eSE,
@@ -57,20 +70,9 @@ STAGE_SPECS = {
 FEATURE_STRIDES = {"stem": 4, "stage2": 4, "stage3": 8, "stage4": 16,
                    "stage5": 32}
 
-# the depthwise bodies of the JAX STAGE_SPECS: the s2d stem refuses them
-DW_BODIES = ("V-19-slim-dw-eSE", "V-19-dw-eSE")
-
-
-def _spec(body: str) -> Dict:
-    if body not in STAGE_SPECS:
-        raise NotImplementedError(
-            f"VoVNet body {body!r} is not ported yet: the depthwise bodies "
-            "come with ROADMAP queue 1, 'The other backbones and norms'")
-    return STAGE_SPECS[body]
-
 
 def feature_channels(body: str) -> Dict[str, int]:
-    spec = _spec(body)
+    spec = STAGE_SPECS[body]
     out = {"stem": spec["stem"][2]}
     for i, c in enumerate(spec["stage_out_ch"]):
         out[f"stage{i + 2}"] = c
@@ -213,20 +215,54 @@ def s2d_stem_forward(xd2: torch.Tensor,
     return affine_relu(y3, kn.a3)
 
 
+class DWConvBlock(nn.Module):
+    """3x3 depthwise conv (``groups = features``, no bias, no norm) -> 1x1
+    pointwise conv -> ``pw_norm`` -> relu (reference dw_conv3x3,
+    vovnet.py:110-130; JAX ``vovnet.py:86-110``). The input has
+    ``features`` channels."""
+
+    def __init__(self, features: int, strides: Tuple[int, int] = (1, 1),
+                 norm: str = "FrozenBN", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dw_conv = Conv2d(features, features, (3, 3), strides, (1, 1),
+                              groups=features, use_bias=False,
+                              init="kaiming_fan_out", dtype=dtype)
+        self.pw_conv = Conv2d(features, features, (1, 1), padding=(0, 0),
+                              use_bias=False, init="kaiming_fan_out",
+                              dtype=dtype)
+        self.pw_norm = get_norm(norm, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pw_conv(self.dw_conv(x))
+        if self.pw_norm is not None:
+            x = self.pw_norm(x)
+        return F.relu(x)
+
+
 class OSAModule(nn.Module):
     """One-Shot-Aggregation block (reference _OSA_module,
     vovnet.py:263-332). eSE is unconditional, as in the reference
-    forward (vovnet.py:326)."""
+    forward (vovnet.py:326). ``depthwise``: the layers are
+    ``DWConvBlock``s, after a 1x1 ``reduction`` to ``stage_ch`` when the
+    input is wider or narrower (the concat still takes the input as it
+    came)."""
 
     def __init__(self, in_channels: int, stage_ch: int, concat_ch: int,
                  layer_per_block: int, identity: bool = False,
-                 norm: str = "FrozenBN", dtype: torch.dtype = torch.float32):
+                 depthwise: bool = False, norm: str = "FrozenBN",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.identity = identity
+        self.reduction = None
+        if depthwise and in_channels != stage_ch:
+            self.reduction = ConvNormAct(in_channels, stage_ch, (1, 1),
+                                         padding=(0, 0), norm=norm,
+                                         dtype=dtype)
         ch = in_channels
         for i in range(layer_per_block):
-            self.add_module(f"layer{i}", ConvNormAct(
-                ch, stage_ch, norm=norm, dtype=dtype))
+            self.add_module(f"layer{i}", DWConvBlock(
+                stage_ch, norm=norm, dtype=dtype) if depthwise else
+                ConvNormAct(ch, stage_ch, norm=norm, dtype=dtype))
             ch = stage_ch
         self.layer_per_block = layer_per_block
         self.concat = ConvNormAct(
@@ -237,6 +273,8 @@ class OSAModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity_feat = x
         outputs = [x]
+        if self.reduction is not None:
+            x = self.reduction(x)
         for i in range(self.layer_per_block):
             x = getattr(self, f"layer{i}")(x)
             outputs.append(x)
@@ -268,11 +306,11 @@ class VoVNet(nn.Module):
                  s2d_input: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if s2d_input and (body in DW_BODIES or norm != "FrozenBN"):
+        spec = STAGE_SPECS[body]
+        if s2d_input and (spec["dw"] or norm != "FrozenBN"):
             raise ValueError(
                 f"the s2d stem supports standard-conv bodies with FrozenBN "
                 f"only, got {body!r} with norm {norm!r}")
-        spec = _spec(body)
         self.s2d_input = s2d_input
         self.dtype = dtype
         self._s2d_cache = None
@@ -280,9 +318,15 @@ class VoVNet(nn.Module):
         stem = spec["stem"]
         self.stem_1 = ConvNormAct(in_channels, stem[0], strides=(2, 2),
                                   norm=norm, dtype=dtype)
-        self.stem_2 = ConvNormAct(stem[0], stem[1], norm=norm, dtype=dtype)
-        self.stem_3 = ConvNormAct(stem[1], stem[2], strides=(2, 2), norm=norm,
-                                  dtype=dtype)
+        if spec["dw"]:
+            self.stem_2 = DWConvBlock(stem[1], norm=norm, dtype=dtype)
+            self.stem_3 = DWConvBlock(stem[2], strides=(2, 2), norm=norm,
+                                      dtype=dtype)
+        else:
+            self.stem_2 = ConvNormAct(stem[0], stem[1], norm=norm,
+                                      dtype=dtype)
+            self.stem_3 = ConvNormAct(stem[1], stem[2], strides=(2, 2),
+                                      norm=norm, dtype=dtype)
         self.blocks = []
         ch = stem[2]
         for i in range(4):
@@ -292,8 +336,8 @@ class VoVNet(nn.Module):
                 name = f"OSA{stage_num}_{b + 1}"
                 self.add_module(name, OSAModule(
                     ch, spec["stage_conv_ch"][i], spec["stage_out_ch"][i],
-                    spec["layer_per_block"], identity=b > 0, norm=norm,
-                    dtype=dtype))
+                    spec["layer_per_block"], identity=b > 0,
+                    depthwise=spec["dw"], norm=norm, dtype=dtype))
                 ch = spec["stage_out_ch"][i]
                 names.append(name)
             self.blocks.append(names)

@@ -1,5 +1,6 @@
 """FCOS head, NCHW (the port of ``centermask2_tpu/models/fcos/head.py``):
-shared cls/bbox towers of conv3x3 -> GN -> relu, 3x3 predictors for
+shared cls/bbox towers of conv3x3 -> GN -> relu (no norm unless the norm
+is "GN", as in the JAX head), 3x3 predictors for
 class logits (prior-prob bias), box regression (per-level Scale, then
 relu, reference fcos.py:237-238) and centerness. Tower weights are
 shared across FPN levels.
@@ -18,15 +19,12 @@ from ...layers import Conv2d, GroupNorm, Scale
 
 
 class Tower(nn.Module):
-    """num_convs x [conv3x3(bias) -> GN -> relu]."""
+    """num_convs x [conv3x3(bias) -> GN -> relu]; GroupNorm only when
+    ``norm`` is "GN", any other value meaning none (JAX ``head.py:47``)."""
 
     def __init__(self, num_convs: int, channels: int, norm: str = "GN",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if norm not in ("GN", ""):
-            raise NotImplementedError(
-                f"FCOS tower norm {norm!r} is not ported (ROADMAP queue 1, "
-                "'The other backbones and norms')")
         self.num_convs = num_convs
         for i in range(num_convs):
             self.add_module(f"conv{i}", Conv2d(channels, channels, init=0.01,

@@ -18,11 +18,14 @@ proposal matching and sampling, the foreground pick, the mask and
 MaskIoU losses on the multilevel ROIAlign of the picked boxes. Its
 inputs are the f32 canvas (or its s2d layout) and a ``GroundTruth``.
 
-Not ported yet, each raising ``NotImplementedError``, under these items
-of ROADMAP queue 1: keypoints and DCN ('Deformable conv, keypoints,
-adaptive ROIAlign'), the ResNet and MobileNet backbones ('The other
-backbones and norms'), BN and SyncBN ('Data parallelism') and
-``TPU.REMAT_BACKBONE`` ('Leftovers of done items').
+The backbone is a VoVNet (standard or depthwise body), a ResNet or a
+MobileNetV2, resolved from the config as the JAX ``build_centermask``
+does; the s2d stem input applies to the VoVNet only. Not ported yet,
+each raising ``NotImplementedError``, under these items of ROADMAP
+queue 1: keypoints and DCN ('Deformable conv, keypoints, adaptive
+ROIAlign'), BN and SyncBN ('Data parallelism') and
+``TPU.REMAT_BACKBONE`` ('Leftovers of done items'). ``TPU.APPROX_TOPK``
+has no port: it selects the TPU's approximate top-k.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ from ..layers import reset_parameters
 from ..utils.device import DeviceLike, resolve_device
 from ..ops import masked_topk
 from ..ops.losses import optax_sigmoid_bce
-from .backbones import FPN, VoVNet, feature_channels
+from .backbones import (FPN, MOBILENET_FEATURE_CHANNELS,
+                        RESNET_FEATURE_STRIDES, MobileNetV2, ResNet, VoVNet,
+                        feature_channels, resnet_feature_channels)
 from .backbones.vovnet import FEATURE_STRIDES
 from .fcos import (FCOSHead, assign_targets_single_image, compute_locations,
                    decode_batch, fcos_losses, level_metadata)
@@ -78,10 +83,23 @@ class GroundTruth(NamedTuple):
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+BACKBONE_TYPES = ("vovnet", "resnet", "mobilenet")
+TOP_LEVEL_BLOCKS = {2: "p6p7", 1: "p6", 0: None}  # FCOS.TOP_LEVELS
+
+
 class CenterMask(nn.Module):
     def __init__(
         self,
+        backbone_type: str = "vovnet",
         conv_body: str = "V-39-eSE",
+        resnet_depth: int = 50,
+        resnet_norm: str = "FrozenBN",
+        resnet_num_groups: int = 1,
+        resnet_width_per_group: int = 64,
+        resnet_stride_in_1x1: bool = True,
+        resnet_res5_dilation: int = 1,
+        resnet_res2_out_channels: int = 256,
+        resnet_stem_out_channels: int = 64,
         backbone_norm: str = "FrozenBN",
         fpn_in_features: Sequence[str] = ("stage3", "stage4", "stage5"),
         fpn_out_channels: int = 256,
@@ -137,10 +155,13 @@ class CenterMask(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
-        if top_levels != 2:
-            raise NotImplementedError(
-                "only the P6P7 top block is ported (ROADMAP queue 1, "
-                "'The other backbones and norms')")
+        if backbone_type not in BACKBONE_TYPES:
+            raise ValueError(f"backbone type {backbone_type!r}: one of "
+                             f"{BACKBONE_TYPES}")
+        if s2d_input and backbone_type != "vovnet":
+            raise ValueError("the s2d stem input (TPU.S2D_STEM_INPUT) "
+                             f"applies to the VoVNet only, not {backbone_type}")
+        self.backbone_type = backbone_type
         self.fpn_in_features = tuple(fpn_in_features)
         self.fcos_in_features = tuple(fcos_in_features)
         self.fpn_strides = tuple(fpn_strides)
@@ -179,14 +200,31 @@ class CenterMask(nn.Module):
                              torch.tensor(pixel_mean, dtype=torch.float32),
                              persistent=False)
 
-        self.backbone = VoVNet(conv_body, out_features=self.fpn_in_features,
-                               norm=backbone_norm, s2d_input=s2d_input,
-                               dtype=dtype)
-        chans = feature_channels(conv_body)
+        if backbone_type == "mobilenet":
+            # computes in f32 whatever ``dtype`` (backbones/mobilenet.py)
+            self.backbone = MobileNetV2(out_features=self.fpn_in_features)
+            chans, strides = MOBILENET_FEATURE_CHANNELS, RESNET_FEATURE_STRIDES
+        elif backbone_type == "resnet":
+            # reference build_fcos_resnet_fpn_backbone (fpn.py:56-87)
+            self.backbone = ResNet(
+                resnet_depth, out_features=self.fpn_in_features,
+                norm=resnet_norm, stem_out_channels=resnet_stem_out_channels,
+                res2_out_channels=resnet_res2_out_channels,
+                num_groups=resnet_num_groups,
+                width_per_group=resnet_width_per_group,
+                stride_in_1x1=resnet_stride_in_1x1,
+                res5_dilation=resnet_res5_dilation, dtype=dtype)
+            chans = resnet_feature_channels(resnet_res2_out_channels)
+            strides = RESNET_FEATURE_STRIDES
+        else:
+            self.backbone = VoVNet(
+                conv_body, out_features=self.fpn_in_features,
+                norm=backbone_norm, s2d_input=s2d_input, dtype=dtype)
+            chans, strides = feature_channels(conv_body), FEATURE_STRIDES
         self.fpn = FPN([chans[f] for f in self.fpn_in_features],
-                       [FEATURE_STRIDES[f] for f in self.fpn_in_features],
+                       [strides[f] for f in self.fpn_in_features],
                        fpn_out_channels, fpn_norm, fpn_fuse_type,
-                       top_block="p6p7", dtype=dtype)
+                       top_block=TOP_LEVEL_BLOCKS[top_levels], dtype=dtype)
         self.fcos_head = FCOSHead(
             num_classes, fpn_out_channels, num_cls_convs, num_box_convs,
             num_share_convs, fcos_norm, len(self.fcos_in_features),
@@ -581,6 +619,16 @@ def _patch_fraction_inside(patches: torch.Tensor, gt_boxes: torch.Tensor,
     return (patches * inside).sum(dim=(1, 2))
 
 
+def backbone_type(cfg: CfgNode) -> str:
+    """"mobilenet", "resnet" or "vovnet", from MODEL.BACKBONE.NAME and
+    MODEL.MOBILENET as the JAX ``build_centermask`` resolves them
+    (``meta.py:706-717``)."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if "mobilenet" in name or cfg.MODEL.MOBILENET:
+        return "mobilenet"
+    return "resnet" if "resnet" in name else "vovnet"
+
+
 def build_centermask(cfg: CfgNode, device: DeviceLike = None,
                      seed: int = 0) -> CenterMask:
     """Construct the model from a config on ``device`` (``cuda`` unless the
@@ -590,12 +638,7 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
     ``checkpoint.from_jax.load_jax_params``. Training takes the same
     model (no layer behaves differently in train mode)."""
     dev = resolve_device(device)
-    backbone_name = cfg.MODEL.BACKBONE.NAME
-    if "mobilenet" in backbone_name or "resnet" in backbone_name or \
-            cfg.MODEL.MOBILENET:
-        raise NotImplementedError(
-            f"backbone {backbone_name!r} is not ported yet (ROADMAP queue 1, "
-            "'The other backbones and norms')")
+    kind = backbone_type(cfg)
     if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
             "keypoints are not ported yet (ROADMAP queue 1, "
@@ -606,19 +649,26 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
             "'Deformable conv, keypoints, adaptive ROIAlign')")
     if cfg.TPU.APPROX_TOPK:
         raise NotImplementedError(
-            "TPU.APPROX_TOPK has no port (ROADMAP queue 1, "
-            "'The other backbones and norms')")
+            "TPU.APPROX_TOPK selects the TPU's approximate top-k, which has "
+            "no CUDA counterpart; the port decodes with the exact top-k")
     if cfg.TPU.REMAT_BACKBONE:
         raise NotImplementedError(
             "TPU.REMAT_BACKBONE (backbone recomputation in the backward) is "
             "not ported yet (ROADMAP queue 1, 'Leftovers of done items')")
-    if cfg.MODEL.VOVNET.NORM in ("BN", "SyncBN"):
-        raise NotImplementedError(
-            f"norm {cfg.MODEL.VOVNET.NORM!r} is not ported yet (ROADMAP "
-            "queue 1, 'Data parallelism')")
-    fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or ("stage3", "stage4", "stage5")
+    fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or {
+        "vovnet": ("stage3", "stage4", "stage5"),
+        "resnet": tuple(cfg.MODEL.RESNETS.OUT_FEATURES)}.get(kind, ())
     model = CenterMask(
+        backbone_type=kind,
         conv_body=cfg.MODEL.VOVNET.CONV_BODY,
+        resnet_depth=cfg.MODEL.RESNETS.DEPTH,
+        resnet_norm=cfg.MODEL.RESNETS.NORM,
+        resnet_num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
+        resnet_width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP,
+        resnet_stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
+        resnet_res5_dilation=cfg.MODEL.RESNETS.RES5_DILATION,
+        resnet_res2_out_channels=cfg.MODEL.RESNETS.RES2_OUT_CHANNELS,
+        resnet_stem_out_channels=cfg.MODEL.RESNETS.STEM_OUT_CHANNELS,
         backbone_norm=cfg.MODEL.VOVNET.NORM,
         fpn_in_features=fpn_in,
         fpn_out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
@@ -674,7 +724,8 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         roi_iou_thresholds=tuple(cfg.MODEL.ROI_HEADS.IOU_THRESHOLDS),
         roi_iou_labels=tuple(cfg.MODEL.ROI_HEADS.IOU_LABELS),
         proposal_append_gt=cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT,
-        s2d_input=cfg.TPU.S2D_STEM_INPUT,
+        # the s2d stem is VoVNet's (JAX meta.py:799)
+        s2d_input=cfg.TPU.S2D_STEM_INPUT and kind == "vovnet",
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
     )

@@ -1,8 +1,9 @@
 """SAG-Mask head, NCHW (the port of
-``centermask2_tpu/models/roi/mask_head.py``): 4x conv3x3 + relu ->
+``centermask2_tpu/models/roi/mask_head.py``): 4x conv3x3 (+ norm) + relu ->
 spatial attention -> 2x2/s2 deconv + relu -> 1x1 predictor with
 num_classes channels, on (R, C, 14, 14) pooled features to
-(R, num_classes, 28, 28) logits.
+(R, num_classes, 28, 28) logits. With a norm (ROI_MASK_HEAD.NORM, GN or
+FrozenBN) each conv loses its bias and is followed by ``mask_fcn{k}_norm``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ConvTranspose2d, SpatialAttention
+from ...layers import Conv2d, ConvTranspose2d, SpatialAttention, get_norm
 
 
 class SpatialAttentionMaskHead(nn.Module):
@@ -20,15 +21,13 @@ class SpatialAttentionMaskHead(nn.Module):
                  cls_agnostic: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if norm:
-            raise NotImplementedError(
-                f"mask head norm {norm!r} is not ported (shipped configs "
-                "use none; ROADMAP queue 1, 'The other backbones and norms')")
         self.num_conv = num_conv
         ch = in_channels
         for k in range(num_conv):
             self.add_module(f"mask_fcn{k + 1}", Conv2d(
-                ch, conv_dims, init="kaiming_fan_out", dtype=dtype))
+                ch, conv_dims, use_bias=not norm, init="kaiming_fan_out",
+                dtype=dtype))
+            self.add_module(f"mask_fcn{k + 1}_norm", get_norm(norm, conv_dims))
             ch = conv_dims
         self.spatialAtt = SpatialAttention(dtype=dtype)
         self.deconv = ConvTranspose2d(conv_dims, conv_dims,
@@ -39,7 +38,11 @@ class SpatialAttentionMaskHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for k in range(self.num_conv):
-            x = F.relu(getattr(self, f"mask_fcn{k + 1}")(x))
+            x = getattr(self, f"mask_fcn{k + 1}")(x)
+            norm = getattr(self, f"mask_fcn{k + 1}_norm")
+            if norm is not None:
+                x = norm(x)
+            x = F.relu(x)
         x = self.spatialAtt(x)
         x = F.relu(self.deconv(x))
         return self.predictor(x)

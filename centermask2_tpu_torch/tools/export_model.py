@@ -72,6 +72,9 @@ def main(argv=None) -> None:
     fixed = cfg.TPU.FIXED_EDGE_SIZE
 
     dtype, canvas = torch.float32, None
+    if (args.tight or args.tight_compute) and not args.serving_u8:
+        raise SystemExit("--tight and --tight-compute shape the uint8 s2d "
+                         "serving program: they need --serving-u8")
     if args.serving_u8:
         if not model.s2d_input:
             raise SystemExit("--serving-u8 requires TPU.S2D_STEM_INPUT True")

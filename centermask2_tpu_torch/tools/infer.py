@@ -52,9 +52,12 @@ def load_weights(model, cfg, path: str) -> None:
     from ..checkpoint.convert_torch import (convert_checkpoint,
                                             load_torch_checkpoint)
     from ..checkpoint.from_jax import load_jax_params
+    from ..models.meta import backbone_type
 
     tree, report = convert_checkpoint(
         load_torch_checkpoint(path), conv_body=cfg.MODEL.VOVNET.CONV_BODY,
+        backbone=backbone_type(cfg), resnet_depth=cfg.MODEL.RESNETS.DEPTH,
+        fcos_norm=cfg.MODEL.FCOS.NORM, top_levels=cfg.MODEL.FCOS.TOP_LEVELS,
         num_cls_convs=cfg.MODEL.FCOS.NUM_CLS_CONVS,
         num_box_convs=cfg.MODEL.FCOS.NUM_BOX_CONVS,
         num_share_convs=cfg.MODEL.FCOS.NUM_SHARE_CONVS,
@@ -106,7 +109,7 @@ def main(argv=None) -> None:
     model = build_centermask(cfg, device=args.device, seed=0)
     if args.tight_compute and not model.s2d_input:
         raise SystemExit("--tight-compute requires an s2d-input model "
-                         "(TPU.S2D_STEM_INPUT)")
+                         "(TPU.S2D_STEM_INPUT, a VoVNet backbone)")
     if args.weights:
         load_weights(model, cfg, args.weights)
 

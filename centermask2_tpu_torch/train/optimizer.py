@@ -100,11 +100,11 @@ class WarmupMultiStepLR:
 
 def freeze_prefixes(freeze_at: int) -> Tuple[str, ...]:
     """MODEL.BACKBONE.FREEZE_AT -> backbone module-name patterns to freeze
-    (JAX ``optimizer.py:47-71``): stage 0 is the VoVNet stem (``stem_*``),
-    stage i > 0 is ``OSA{i+1}_*``; the ResNet (``res{i}_``) and MobileNet
-    (``features{i}``) names are kept for when those backbones are ported.
-    A trailing ``$`` marks an exact module-name match; anything else is a
-    prefix."""
+    (JAX ``optimizer.py:47-71``). Stage 1 is the stem: VoVNet's
+    ``stem_{1,2,3}``, ResNet's ``stem_conv1`` and MobileNet's
+    ``features0_*``. Stage s >= 2 adds VoVNet's ``OSA{s}_*``, ResNet's
+    ``res{s}_*`` and MobileNet's block ``features{s-1}``. A trailing
+    ``$`` marks an exact module-name match; anything else is a prefix."""
     names = []
     if freeze_at >= 1:
         names.append("stem")

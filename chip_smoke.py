@@ -7,7 +7,8 @@ NVIDIA GPU.
 It builds the port's CUDA kernels from ``centermask2_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 V-39-eSE flagship (random weights from a seed) through the kernels, and
-times the kernels and the end-to-end latency. Phases, in order:
+times the kernels and the end-to-end latency; then it serves and trains
+the other backbone families. Phases, in order:
 
 1. card:    the card's name and power limit (nvidia-smi).
 2. build:   nvcc of every kernel, in parallel; build seconds, and each
@@ -105,11 +106,31 @@ times the kernels and the end-to-end latency. Phases, in order:
             one batch that bring the loss down; a checkpoint round trip
             into new objects and into the captured step's own tensors,
             the step after it equal to the step without it.
-11. result: a ``{"kernels": [...]}`` line whose launches sum the counts
-            of ``serve``, ``graphs``, ``serving``, ``eval``, ``export`` and
-            ``train`` (the launch functions' counts: eager launches and
-            captures, not replays), then the last line ``{"ok": true,
-            "device": {...}}``.
+11. backbones: the other backbone families from their yamls at full
+            width in bf16 (``BACKBONES``, configs built in Python). R-50
+            at 800x1088 and 1344x1344: an eager request and one through
+            ``CapturedInference`` (one launch of kernels 1 and 2 an eager
+            request, 3 at a capture, none at a replay; one per replay by
+            the profiler; the replay equal to the eager request slot by
+            slot), each kernel against its plain version on the
+            request's inputs, a 4 s captured and a 4 s eager window; the
+            same request in f32 (TF32 off) at 800x1088; the eval entry
+            point over the 8-image synthetic set, captured and eager,
+            equal predictions and proposals; training at 1344x1344, B = 2,
+            FREEZE_AT 2, captured then eager (launches, finite losses,
+            stem_conv1 and res2 bit-equal after the steps, ms a step,
+            images/s, peak memory, a step's device time) and one f32 step
+            through the kernels against the plain versions. R-101,
+            MobileNetV2, V-19-dw-eSE and V-19-slim-dw-eSE: one 800x1088
+            request each, eager and captured, with 2 s windows. A
+            ``[backbones]`` line per model and canvas: captured ms and
+            quartiles, device ms, idle share, eager ms, graph pool,
+            parameters.
+12. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+            of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
+            ``train`` and ``backbones`` (the launch functions' counts:
+            eager launches and captures, not replays), then the last line
+            ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -177,13 +198,12 @@ REQUESTS = ((100, 800, 1088), (101, 800, 1088), (102, 800, 1088),
             (103, 1344, 1344))
 
 
-def flagship_cfg():
-    """``configs/centermask/zy_model_config.yaml`` merged over the defaults,
-    built in Python (no yaml)."""
+def base_cfg():
+    """``configs/centermask/Base-CenterMask-VoVNet.yaml`` merged over the
+    defaults, built in Python (no yaml): the base of every config here."""
     from centermask2_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
-    # Base-CenterMask-VoVNet.yaml
     cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
     cfg.MODEL.BACKBONE.NAME = "build_fcos_vovnet_fpn_backbone"
     cfg.MODEL.BACKBONE.FREEZE_AT = 0
@@ -207,13 +227,67 @@ def flagship_cfg():
     cfg.SOLVER.STEPS = (60000, 80000)
     cfg.SOLVER.MAX_ITER = 90000
     cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
-    # zy_model_config.yaml (its WEIGHTS: "" merges as None)
+    return cfg
+
+
+def flagship_cfg():
+    """``configs/centermask/zy_model_config.yaml`` (its WEIGHTS: "" merges
+    as None)."""
+    cfg = base_cfg()
     cfg.MODEL.WEIGHTS = None
     cfg.MODEL.VOVNET.CONV_BODY = "V-39-eSE"
     cfg.SOLVER.STEPS = (210000, 250000)
     cfg.SOLVER.MAX_ITER = 270000
     cfg.OUTPUT_DIR = "output/zy_outputs"
     return cfg
+
+
+def resnet_cfg(depth: int = 50):
+    """``centermask_R_50_FPN_ms_3x.yaml``, or with ``depth`` 101
+    ``centermask_R_101_FPN_ms_3x.yaml``."""
+    cfg = base_cfg()
+    cfg.MODEL.BACKBONE.NAME = "build_fcos_resnet_fpn_backbone"
+    cfg.MODEL.BACKBONE.FREEZE_AT = 2
+    cfg.MODEL.RESNETS.DEPTH = depth
+    cfg.MODEL.RESNETS.OUT_FEATURES = ["res3", "res4", "res5"]
+    cfg.MODEL.FPN.IN_FEATURES = ["res3", "res4", "res5"]
+    return cfg
+
+
+def mobilenet_cfg():
+    """``centermask_mobilenetV2_FPN_ms_4x.yaml``."""
+    cfg = base_cfg()
+    cfg.MODEL.MOBILENET = True
+    cfg.MODEL.BACKBONE.NAME = "build_fcos_mobilenetv2_fpn_backbone"
+    cfg.MODEL.FPN.IN_FEATURES = ["res3", "res4", "res5"]
+    return cfg
+
+
+def lite_cfg(body: str):
+    """``centermask_lite_V_19_eSE_FPN_ms_4x.yaml`` with the VoVNet ``body``
+    (the lite yamls of the depthwise bodies)."""
+    cfg = base_cfg()
+    cfg.MODEL.VOVNET.CONV_BODY = body
+    cfg.MODEL.FCOS.POST_NMS_TOPK_TEST = 50
+    cfg.SOLVER.STEPS = (300000, 340000)
+    cfg.SOLVER.MAX_ITER = 360000
+    cfg.INPUT.MIN_SIZE_TRAIN = (580, 600)
+    cfg.INPUT.MAX_SIZE_TRAIN = 900
+    cfg.INPUT.MIN_SIZE_TEST = 600
+    cfg.INPUT.MAX_SIZE_TEST = 1000
+    return cfg
+
+
+# the [backbones] phase's models: name -> (config, its yaml)
+BACKBONES = {
+    "R-50": (lambda: resnet_cfg(50), "centermask_R_50_FPN_ms_3x.yaml"),
+    "R-101": (lambda: resnet_cfg(101), "centermask_R_101_FPN_ms_3x.yaml"),
+    "MobileNetV2": (mobilenet_cfg, "centermask_mobilenetV2_FPN_ms_4x.yaml"),
+    "V-19-dw-eSE": (lambda: lite_cfg("V-19-dw-eSE"),
+                    "centermask_lite_V_19_dw_eSE_FPN_ms_4x.yaml"),
+    "V-19-slim-dw-eSE": (lambda: lite_cfg("V-19-slim-dw-eSE"),
+                         "centermask_lite_V_19_slim_dw_eSE_FPN_ms_4x.yaml"),
+}
 
 
 def serving_cfg():
@@ -318,6 +392,23 @@ def plain_kernels():
     return kernels_swapped(greedy_keep_sorted_plain,
                            multilevel_roi_align_plain,
                            roi_align_feature_grad_plain)
+
+
+@contextlib.contextmanager
+def exact_f32(deterministic: bool = False):
+    """Inside the block, f32 convolutions (cuDNN) and matmuls (cuBLAS)
+    without TF32, and cuDNN deterministic or not; the settings before it
+    restored after it."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             b.cudnn.deterministic)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+         b.cudnn.deterministic) = saved
 
 
 @contextlib.contextmanager
@@ -722,14 +813,13 @@ def serve(dev):
     log("  request under sync-debug mode 'error': no host sync on the path")
 
     # f32: kernels vs plain versions on the card, TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = flagship_cfg()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     model32 = build_model(cfg32, dev)
-    ok = model32.inference(images[0])
-    with plain_kernels():
-        op = model32.inference(images[0])
+    with exact_f32():
+        ok = model32.inference(images[0])
+        with plain_kernels():
+            op = model32.inference(images[0])
     n = compare_outputs(ok, op, K, "f32 kernels vs plain")
     log(f"  f32 {REQUESTS[0][1]}x{REQUESTS[0][2]}: {n} valid slots, "
         "classes equal")
@@ -1031,88 +1121,119 @@ def captured_window(prog, x_host, seconds: float) -> dict:
             "device": a.elapsed_time(b) / reps}
 
 
-def graphs_phase(dev, models, eager_ms: dict, canvases=GRAPH_CANVASES,
-                 graphs=None, timing: bool = True) -> dict:
-    """The ``[graphs]`` phase: the flagship through ``CapturedInference``
-    at each canvas, per dtype. Launch counts: WARMUP_CALLS + 1 of each
-    kernel at the first call of a canvas (the side-stream warm-up and the
-    capture), none at a replay; the profiler's count per replay; the f32
-    replay against the eager request slot by slot under ``E2E_TOL``, the
-    bf16 one with its worst difference printed; capture seconds, graphs
-    and pool memory; with ``timing``, per-request ms of bf16 requests
-    beside the eager medians of ``[time]`` (``eager_ms`` by (H, W)).
-    Returns the launches counted."""
+def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
+                   eager_ms=None, graphs=None, errs=None) -> dict:
+    """``model`` (``name``) at each canvas of ``canvases`` ((seed, H, W)),
+    eagerly and through one ``CapturedInference``. Gates: one launch of
+    kernels 1 and 2 an eager request, ``WARMUP_CALLS`` + 1 at a capture
+    (the side-stream warm-up and the capture) and none at a replay
+    (launch counts), one per replay (profiler); the replay against the
+    eager request slot by slot (``compare_outputs``; bit-equality and the
+    worst differences printed). With ``errs``, each kernel held against
+    its plain version on the eager request's inputs, the worst errors
+    into ``errs``. With ``window_s``, a captured window of that many
+    seconds at each canvas beside the eager median of ``eager_ms`` at
+    (H, W), or of an eager window of ``window_s`` where it has none; one
+    line a canvas with the graph pool and the parameter count. Returns
+    the launches counted."""
     from centermask2_tpu_torch.export import CapturedInference
     from centermask2_tpu_torch.export.captured import WARMUP_CALLS
     from centermask2_tpu_torch.ops import _kernels
 
     dev = torch.device(dev)
+    cuda = dev.type == "cuda"
     card = card_line()
+    short = "bf16" if model.dtype == torch.bfloat16 else "f32"
+    K = model.decode_kwargs["post_nms_topk"]
+    launches = {"nms": 0, "roi_align": 0}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+    prog = CapturedInference(model, graphs=graphs)
+    rows = []
+    for seed, H, W in canvases:
+        img = make_image(seed, H, W, dev)
+        what = f"{name} {short} {H}x{W}"
+        outs = []
+        _kernels.reset_launch_counts()
+        seen, peak = eager_peak(lambda: capture_kernel_inputs(
+            lambda: outs.append(model.inference(img))))
+        counts = [_kernels.launch_counts()]
+        for _ in range(2):  # the warm-up and capture, then a replay
+            _kernels.reset_launch_counts()
+            got = prog(img)
+            counts.append(_kernels.launch_counts())
+        want = [(n, n) for n in (1, WARMUP_CALLS + 1, 0)]
+        if [(c["nms"], c["roi_align"]) for c in counts] != want:
+            raise AssertionError(f"{what}: launches {counts} for an eager "
+                                 "request, a capture and a replay")
+        for c in counts:
+            for k in launches:
+                launches[k] += c[k]
+        got = type(got)(*(t.clone() for t in got))
+        n = compare_outputs(got, outs[0], K, f"{what} replay vs eager")
+        same = all(torch.equal(a, b) for a, b in zip(got, outs[0]))
+        worst = {f: float((getattr(got, f).double()
+                           - getattr(outs[0], f).double()).abs().max())
+                 for f in E2E_TOL}
+        log(f"  {what}: {n} valid of {K}; kernels 1 and 2 launched once by "
+            f"the eager request, {WARMUP_CALLS + 1} times by the capture "
+            f"({WARMUP_CALLS} warm-up requests + the capture), not by a "
+            f"replay; the replay equals the eager request slot by slot, "
+            f"every output bit-equal {same}, worst abs differences "
+            + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
+            + f"; the eager request allocates at its peak "
+            f"{peak / 2 ** 20:.1f} MiB above its start")
+        if errs is not None:
+            check_captured(seen, f"{what} request", errs)
+        del seen
+        replay_launches(lambda: prog(img), GRAPH_REPLAYS,
+                        ("nms", "roi_align"), f"{what} replays")
+        if window_s:
+            r = captured_window(prog, img.cpu().pin_memory(), window_s)
+            eager = (eager_ms or {}).get((H, W))
+            source = "[time]"
+            if eager is None:
+                eager = latency_window(model, img, window_s,
+                                       warmup_s=0.5)["median"]
+                source = f"a {window_s} s window"
+            rows.append((H, W, r, eager, source))
+    pool = pool_bytes(r0) if cuda else 0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {name} {short}: {len(prog)} graphs captured in "
+        f"{prog.capture_s:.3f} s (warm-up included); graph pool "
+        f"{pool / 2 ** 20:.1f} MiB; {n_params} parameters ({card})")
+    for H, W, r, eager, source in rows:
+        log(f"  {name} {short} {H}x{W}: captured {r['median']:.3f} ms/img "
+            f"[q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] over {r['n']} requests "
+            f"with the input's and the outputs' copies, host enqueue median "
+            f"{r['enqueue']:.3f}; device {r['device']:.3f} ms a replay (idle "
+            f"share {max(0.0, 1 - r['device'] / r['median']):.3f}); eager "
+            f"median {eager:.3f} ms ({source}); graph pool "
+            f"{pool / 2 ** 20:.1f} MiB ({len(prog)} graphs); {n_params} "
+            f"parameters ({card})")
+    del prog
+    return launches
+
+
+def graphs_phase(dev, models, eager_ms: dict, canvases=GRAPH_CANVASES,
+                 graphs=None, timing: bool = True) -> dict:
+    """The ``[graphs]`` phase: the flagship through ``CapturedInference``
+    at each canvas, per dtype (``graph_requests``); with ``timing``, the
+    bf16 requests' windows beside the eager medians of ``[time]``
+    (``eager_ms`` by (H, W)); then where the f32 pool comes from
+    (``f32_memory``). Returns the launches counted."""
+    dev = torch.device(dev)
     launches = {"nms": 0, "roi_align": 0}
     for dtype_name, model in models.items():
-        short = "bf16" if dtype_name == "bfloat16" else "f32"
-        K = model.decode_kwargs["post_nms_topk"]
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            r0 = torch.cuda.memory_reserved()
-        prog = CapturedInference(model, graphs=graphs)
-        for seed, H, W in canvases:
-            img = make_image(seed, H, W, dev)
-            what = f"{short} {H}x{W}"
-            _kernels.reset_launch_counts()
-            out = prog(img)
-            first = _kernels.launch_counts()
-            _kernels.reset_launch_counts()
-            out = prog(img)
-            again = _kernels.launch_counts()
-            for k in launches:
-                launches[k] += first[k] + again[k]
-            if (first["nms"], first["roi_align"]) != (WARMUP_CALLS + 1,) * 2 \
-                    or (again["nms"], again["roi_align"]) != (0, 0):
-                raise AssertionError(f"graph {what}: launches {first} at the "
-                                     f"capture, {again} at a replay")
-            got = type(out)(*(t.clone() for t in out))
-            want, peak = eager_peak(lambda: model.inference(img))
-            if dtype_name == "float32":
-                n = compare_outputs(got, want, K,
-                                    f"f32 {H}x{W} replay vs eager")
-                log(f"  graph {what}: {n} valid slots, classes equal")
-            else:
-                check_outputs(got, 1, K, f"graph {what}")
-                worst = {f: float((getattr(got, f).double()
-                                   - getattr(want, f).double()).abs().max())
-                         for f in E2E_TOL}
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                log(f"  graph {what} replay vs eager: valid masks equal "
-                    f"{torch.equal(got.valid, want.valid)}, every output "
-                    f"bit-equal {same}; worst abs differences " + ", ".join(
-                        f"{f} {v:.3e}" for f, v in worst.items()))
-            log(f"  graph {what}: launches at the capture {first} "
-                f"({WARMUP_CALLS} warm-up requests + the capture), at a "
-                f"replay {again}; the eager request allocates at its peak "
-                f"{peak / 2 ** 20:.1f} MiB above its start")
-            replay_launches(lambda: prog(img), GRAPH_REPLAYS,
-                            ("nms", "roi_align"), f"graph {what} replays")
-            if timing and dtype_name == "bfloat16":
-                r = captured_window(prog, img.cpu().pin_memory(), WINDOW_S)
-                eager = eager_ms.get((H, W))
-                log(f"  graph {what}: {r['n']} requests, ms/img median "
-                    f"{r['median']:.3f} [q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] "
-                    f"with the input's and the outputs' copies, host enqueue "
-                    f"median {r['enqueue']:.3f}; device {r['device']:.3f} ms "
-                    f"per replay (idle share "
-                    f"{max(0.0, 1 - r['device'] / r['median']):.3f}); eager "
-                    f"median of [time] "
-                    + (f"{eager:.3f} ms" if eager else "not measured")
-                    + f" ({card})")
-        pool = pool_bytes(r0) if dev.type == "cuda" else 0
-        log(f"  {short}: {len(prog)} graphs captured in "
-            f"{prog.capture_s:.3f} s (warm-up included); their pool holds "
-            f"{pool / 2 ** 20:.1f} MiB ({card})")
-        del prog
+        window = WINDOW_S if timing and dtype_name == "bfloat16" else 0.0
+        for k, v in graph_requests(dev, "graph", model, canvases, window,
+                                   eager_ms, graphs).items():
+            launches[k] += v
     if dev.type == "cuda" and "float32" in models:
-        f32_memory(models["float32"], make_image(*canvases[-1], dev), card)
+        f32_memory(models["float32"], make_image(*canvases[-1], dev),
+                   card_line())
     return launches
 
 
@@ -1601,6 +1722,82 @@ def eval_host_split(run, n_images: int) -> None:
         + f"; device kernel time {device} (profiler)")
 
 
+def eval_runs(model, ann: str, modes, common: dict, n_images: int,
+              graphs=None) -> tuple:
+    """``evaluate_dataset`` of ``model`` over ``ann`` once a mode of
+    ``modes``: (mode, the loop's arguments, graphs captured, the name of
+    the captured program the run builds for itself or None). Gates:
+    launches of kernels 1 and 2 one a request eagerly and
+    ``WARMUP_CALLS`` + 1 a graph when captured (warm-up and capture; a
+    replay launches nothing through the launch functions). Each
+    program's graphs and pool are printed. Returns ({mode: (metrics,
+    evaluator)}, {name: program}, the launches counted)."""
+    from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+    from centermask2_tpu_torch.export import CapturedInference
+    from centermask2_tpu_torch.export.captured import WARMUP_CALLS
+    from centermask2_tpu_torch.ops import _kernels
+
+    cuda = next(model.parameters()).device.type == "cuda"
+    card = card_line()
+    launches = {"nms": 0, "roi_align": 0}
+    runs, progs = {}, {}
+    for mode, kw, n_graphs, name in modes:
+        if name is not None:  # its pool: the reserved memory it adds
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                r0 = torch.cuda.memory_reserved()
+            kw = dict(kw, fn=CapturedInference(model, graphs=graphs))
+            progs[name] = kw["fn"]
+        _kernels.reset_launch_counts()
+        res, avg_ms, ev = evaluate_dataset(model, ann=ann, **kw, **common)
+        got = _kernels.launch_counts()
+        want = (WARMUP_CALLS + 1) * n_graphs if n_graphs else n_images
+        if (got["nms"], got["roi_align"]) != (want, want):
+            raise AssertionError(f"eval {mode}: launches {got}, {want} "
+                                 f"expected for {n_images} images and "
+                                 f"{n_graphs} graphs")
+        for k in launches:
+            launches[k] += got[k]
+        runs[mode] = (res, ev)
+        how = (f"{n_graphs} captured programs, {want} launches of each "
+               f"kernel at their warm-up and capture" if n_graphs else
+               f"eager, one launch of each kernel a request")
+        n_prop = sum(len(p["boxes"]) for p in ev.proposals.values())
+        log(f"  eval {mode}: {n_images} images, {len(ev.predictions)} "
+            f"predictions of the set's categories, {n_prop} proposals, bbox "
+            f"AP {res['bbox']['AP']:.4f}; {how}; avg {avg_ms:.3f} ms/img "
+            f"({card})")
+        if name is not None:
+            prog = progs[name]
+            pool = pool_bytes(r0) if cuda else 0
+            log(f"  eval {name} program: {len(prog)} graphs (one a "
+                f"canvas met) captured in {prog.capture_s:.3f} s "
+                f"(warm-up included), pool {pool / 2 ** 20:.1f} MiB "
+                f"({card})")
+    return runs, progs, launches
+
+
+def check_same_runs(runs: dict, modes, what: str) -> None:
+    """The runs of ``modes`` give equal predictions and equal
+    class-agnostic proposals (the evaluator's box_proposals input, which
+    also keeps the detections of the classes the set has no category
+    for), and some proposals."""
+    def key(mode):
+        ev = runs[mode][1]
+        return ev.predictions, {i: (p["boxes"].tolist(),
+                                    p["objectness"].tolist())
+                                for i, p in ev.proposals.items()}
+
+    first = key(modes[0])
+    n_prop = sum(len(b) for b, _ in first[1].values())
+    if n_prop == 0 or any(key(m) != first for m in modes[1:]):
+        raise AssertionError(f"eval: {n_prop} proposals; the predictions or "
+                             f"proposals of {what} differ")
+    log(f"  eval: predictions ({len(first[0])}) and proposals ({n_prop}) of "
+        f"{what} equal")
+
+
 def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
                max_size: int = 1333, shapes=EVAL_SHAPES,
                sides=(20, 64, 240), timed_images: int = EVAL_TIMED_IMAGES,
@@ -1611,13 +1808,12 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
 
     Checks, over one image a shape: the tight pack padded back through
     the loop's default (captured programs on CUDA) and through ``fn=
-    model.inference`` (eager), the full pack, and tight compute give
-    equal predictions (the first three) and finite metrics under every
-    key (the last); launches one a request eagerly and ``WARMUP_CALLS``
-    + 1 a graph when captured (warm-up and capture; a replay launches
-    nothing through the launch functions). The graphs of the pad-back,
-    full-pack and tight-compute programs (one a canvas met) are built
-    there, and each program's pool is read.
+    model.inference`` (eager), the full pack, their programs and tight
+    compute give equal predictions and proposals (all but the last,
+    ``check_same_runs``) and finite metrics under every key (the last);
+    the launches of ``eval_runs``. The graphs of the pad-back, full-pack
+    and tight-compute programs (one a canvas met) are built there, and
+    each program's pool is read.
 
     Times, over ``timed_images`` images (the shapes in turn): the
     pad-back loop through its program, its graphs built before the
@@ -1632,21 +1828,12 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
 
     from centermask2_tpu_torch.data import s2d_serving_canvas
     from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
-    from centermask2_tpu_torch.export import (CapturedInference,
-                                              supports_graphs)
-    from centermask2_tpu_torch.export.captured import WARMUP_CALLS
-    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.export import supports_graphs
 
-    dev = torch.device(dev)
-    cuda = dev.type == "cuda"
     card = card_line()
     n_tight = len({s2d_serving_canvas(h, w, fixed, min_size)
                    for h, w in shapes})
-    by_default = supports_graphs(dev)
-    launches = {"nms": 0, "roi_align": 0}
-    progs = {}
-    # (mode, the loop's arguments, graphs captured, the program of its
-    # own that the run builds, if any)
+    by_default = supports_graphs(torch.device(dev))
     modes = (("tight pack, pad-back", {}, n_tight if by_default else 0,
               None),
              ("tight pack, pad-back, eager", {"fn": model.inference}, 0,
@@ -1662,46 +1849,11 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
         common = dict(image_root=root, fixed_size=fixed, min_size=min_size,
                       max_size=max_size, progress_every=0,
                       read_image=np.load, pipeline_depth=pipeline_depth)
-        runs = {}
-        for mode, kw, n_graphs, name in modes:
-            if name is not None:  # its pool: the reserved memory it adds
-                if cuda:
-                    torch.cuda.synchronize()
-                    torch.cuda.empty_cache()
-                    r0 = torch.cuda.memory_reserved()
-                kw = dict(kw, fn=CapturedInference(model, graphs=graphs))
-                progs[name] = kw["fn"]
-            _kernels.reset_launch_counts()
-            res, _, ev = evaluate_dataset(model, ann=ann, **kw, **common)
-            got = {"nms": _kernels.nms_launches,
-                   "roi_align": _kernels.roi_align_launches}
-            want = (WARMUP_CALLS + 1) * n_graphs if n_graphs else len(shapes)
-            if set(got.values()) != {want}:
-                raise AssertionError(f"eval {mode}: launches {got}, {want} "
-                                     f"expected for {len(shapes)} images "
-                                     f"and {n_graphs} graphs")
-            for k in launches:
-                launches[k] += got[k]
-            runs[mode] = (res, ev)
-            how = (f"{n_graphs} captured programs, {want} launches of each "
-                   f"kernel at their warm-up and capture" if n_graphs else
-                   f"eager, one launch of each kernel a request")
-            log(f"  eval {mode}: {len(shapes)} images, "
-                f"{len(ev.predictions)} predictions, bbox AP "
-                f"{res['bbox']['AP']:.4f}; {how}")
-            if name is not None:
-                prog = progs[name]
-                pool = pool_bytes(r0) if cuda else 0
-                log(f"  eval {name} program: {len(prog)} graphs (one a "
-                    f"canvas met) captured in {prog.capture_s:.3f} s "
-                    f"(warm-up included), pool {pool / 2 ** 20:.1f} MiB "
-                    f"({card})")
-        preds = [runs[m][1].predictions for m, _, _, _ in modes]
-        if not all(p == preds[0] for p in preds[1:3] + preds[4:]):
-            raise AssertionError("eval: the default, eager, full pack and "
-                                 "program predictions differ")
-        log(f"  eval: predictions of the default loop, the eager loop, the "
-            f"full pack and their programs equal ({len(preds[0])})")
+        runs, progs, launches = eval_runs(model, ann, modes, common,
+                                          len(shapes), graphs)
+        check_same_runs(runs, [m for m, *_ in modes if m != "tight compute"],
+                        "the default loop, the eager loop, the full pack "
+                        "and their programs")
         res = runs["tight compute"][0]
         want = {"bbox": {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR1",
                          "AR10", "AR100"}, "segm": None, "box_proposals": {
@@ -2149,13 +2301,7 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
     step's captured inputs."""
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    try:
+    with exact_f32(deterministic=True):
         model = build_trainer(cfg32, dev, state)[0]
         runs = {}
         seen = capture_step_inputs(lambda: runs.setdefault(
@@ -2166,10 +2312,6 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
         with plain_kernels():
             runs["p1"] = step_grads(model, images, gt, draws)
             runs["p2"] = step_grads(model, images, gt, draws)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = saved
     (lk, gk), (lp, gp) = runs["k1"], runs["p1"]
     for name in lk:
         a, b = float(lk[name]), float(lp[name])
@@ -2321,14 +2463,8 @@ def check_f32_captured_step(cfg, dev, state, steps_in, graphs=None) -> None:
 
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
     runs, before = {}, []
-    try:
+    with exact_f32(deterministic=True):
         for name, capture in (("eager", False), ("eager again", False),
                               ("captured", True)):
             model, opt, sched, step = build_trainer(
@@ -2347,10 +2483,6 @@ def check_f32_captured_step(cfg, dev, state, steps_in, graphs=None) -> None:
             del model, opt, sched, step, out
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = saved
     del before
     bit, worst, worst_name, eager_bit = True, 0.0, "", True
     for i, ((lc, pc), (le, pe), (le2, pe2)) in enumerate(zip(
@@ -2388,6 +2520,83 @@ def check_f32_captured_step(cfg, dev, state, steps_in, graphs=None) -> None:
         f"{runs['captured'][-1][0]['total_loss']:.6f}")
 
 
+class TrainLoops:
+    """``train/trainer.py::train_loop`` over ``batches`` as the CLI runs it,
+    with the launch counts and a CUDA event read after every step;
+    ``totals`` sums each kernel's launches over the runs."""
+
+    def __init__(self, batches, dev, gen):
+        self.batches, self.dev, self.gen = batches, dev, gen
+        self.totals = {k: 0 for k in ("nms", "roi_align",
+                                      "roi_align_backward")}
+        self.counts, self.events, self.metrics = [], [], []
+
+    def after_step(self, done, metrics):
+        from centermask2_tpu_torch.ops import _kernels
+
+        self.counts.append(_kernels.launch_counts())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self.metrics.append(metrics)
+
+    def read_launches(self, n_steps: int, what: str, eager_steps: int):
+        """One launch of each kernel in each of the first ``eager_steps``
+        steps (eager, or the warm-up and the capture of a captured step),
+        none in the later ones (replays)."""
+        prev = {k: 0 for k in self.totals}
+        for i, c in enumerate(self.counts):
+            d = {k: c[k] - prev[k] for k in c}
+            if set(d.values()) != {int(i < eager_steps)}:
+                raise AssertionError(f"{what} step {i}: launches {d}")
+            prev = c
+        if len(self.counts) != n_steps:
+            raise AssertionError(f"{what}: {len(self.counts)} of {n_steps} "
+                                 "steps")
+        for k in self.totals:
+            self.totals[k] += self.counts[-1][k]
+
+    def run(self, step_fn, n_steps, first_timed, what, eager_steps,
+            cycle=True):
+        """``n_steps`` steps of ``step_fn`` (cycling over the batches, or
+        the first one again); returns the CUDA-event ms of the steps from
+        ``first_timed`` on, the loop's wall seconds and the peak memory."""
+        import itertools
+
+        from centermask2_tpu_torch.ops import _kernels
+        from centermask2_tpu_torch.train import train_loop
+
+        self.counts.clear()
+        self.events.clear()
+        self.metrics.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_loop(step_fn, itertools.cycle(self.batches) if cycle
+                   else itertools.repeat(self.batches[0]), device=self.dev,
+                   start_iter=0, max_iter=n_steps, generator=self.gen,
+                   log_every=10 ** 9, after_step=self.after_step, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        self.read_launches(n_steps, what, eager_steps)
+        ms = [a.elapsed_time(b) for a, b in zip(
+            self.events[first_timed - 1:], self.events[first_timed:])]
+        return ms, wall, torch.cuda.max_memory_allocated()
+
+
+def log_train_times(ms, wall, peak, n_steps, first_timed, what, batch,
+                    card):
+    q1, q2, q3 = np.percentile(ms, [25, 50, 75])
+    log(f"  ms per bf16 train step, {what} (CUDA events over "
+        f"{len(ms)} steps after {first_timed}): median {q2:.3f} [q1 "
+        f"{q1:.3f}, q3 {q3:.3f}] min {min(ms):.3f} max {max(ms):.3f}; "
+        f"{batch / q2 * 1e3:.3f} images/s; loop wall "
+        f"{wall / n_steps * 1e3:.3f} ms/step with the first calls; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated) "
+        f"({card})")
+
+
 def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
                 n_gt: int = TRAIN_GT, warmup: int = TRAIN_WARMUP,
                 timed: int = TRAIN_TIMED, overfit: int = OVERFIT_STEPS,
@@ -2404,9 +2613,7 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
 
     from centermask2_tpu_torch.checkpoint.torch_io import (
         load_checkpoint, restore_train_state, save_checkpoint, train_state)
-    from centermask2_tpu_torch.ops import _kernels
-    from centermask2_tpu_torch.train import (CapturedTrainStep,
-                                             batch_to_device, train_loop)
+    from centermask2_tpu_torch.train import CapturedTrainStep, batch_to_device
     from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
 
     dev = torch.device(dev)
@@ -2419,59 +2626,16 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     init_state = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
-    totals = {k: 0 for k in ("nms", "roi_align", "roi_align_backward")}
-
-    # the CLI's loop: launch counts and a CUDA event after every step
-    counts, events, metrics_seen = [], [], []
-
-    def after_step(done, metrics):
-        counts.append(_kernels.launch_counts())
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-        metrics_seen.append(metrics)
-
-    def read_launches(n_steps: int, what: str, eager_steps: int) -> None:
-        """One launch of each kernel in each of the first ``eager_steps``
-        steps (eager, or the warm-up and the capture of a captured step),
-        none in the later ones (replays)."""
-        prev = {k: 0 for k in totals}
-        for i, c in enumerate(counts):
-            d = {k: c[k] - prev[k] for k in c}
-            if set(d.values()) != {int(i < eager_steps)}:
-                raise AssertionError(f"{what} step {i}: launches {d}")
-            prev = c
-        if len(counts) != n_steps:
-            raise AssertionError(f"{what}: {len(counts)} of {n_steps} steps")
-        for k in totals:
-            totals[k] += counts[-1][k]
-
-    def loop(step_fn, n_steps, first_timed, what, eager_steps, cycle=True):
-        counts.clear()
-        events.clear()
-        metrics_seen.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        train_loop(step_fn, itertools.cycle(batches) if cycle
-                   else itertools.repeat(batches[0]), device=dev,
-                   start_iter=0, max_iter=n_steps, generator=gen,
-                   log_every=10 ** 9, after_step=after_step, log=log)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        read_launches(n_steps, what, eager_steps)
-        ms = [a.elapsed_time(b) for a, b in zip(events[first_timed - 1:],
-                                                events[first_timed:])]
-        return ms, wall, torch.cuda.max_memory_allocated()
+    runs = TrainLoops(batches, dev, gen)
+    totals, loop = runs.totals, runs.run
 
     # the main path: the captured step (3 eager warm-up steps, the capture,
     # replays), timed after the capture
     n_eager = WARMUP_STEPS + 1 if captured else warmup
     ms, wall, peak = loop(step, n_eager + timed, n_eager, "train_loop",
                           n_eager if captured else n_eager + timed)
-    first = check_losses(metrics_seen[0], "step 1")
-    last = check_losses(metrics_seen[-1], f"step {n_eager + timed}")
+    first = check_losses(runs.metrics[0], "step 1")
+    last = check_losses(runs.metrics[-1], f"step {n_eager + timed}")
     how = (f"captured: one launch of nms, roi_align and roi_align_backward "
            f"in each of the {WARMUP_STEPS} eager warm-up steps and at the "
            f"capture, none through the launch functions at a replay"
@@ -2483,14 +2647,8 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
         + f"; step {n_eager + timed} total {last['total_loss']:.4f}")
 
     def log_times(ms, wall, peak, n_steps, first_timed, what):
-        q1, q2, q3 = np.percentile(ms, [25, 50, 75])
-        log(f"  ms per bf16 train step, {what} (CUDA events over "
-            f"{len(ms)} steps after {first_timed}): median {q2:.3f} [q1 "
-            f"{q1:.3f}, q3 {q3:.3f}] min {min(ms):.3f} max {max(ms):.3f}; "
-            f"{batch / q2 * 1e3:.3f} images/s; loop wall "
-            f"{wall / n_steps * 1e3:.3f} ms/step with the first calls; peak "
-            f"memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated) "
-            f"({card})")
+        log_train_times(ms, wall, peak, n_steps, first_timed, what, batch,
+                        card)
 
     if timing:
         log_times(ms, wall, peak, n_eager + timed, n_eager,
@@ -2569,7 +2727,7 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     loop(step, overfit, 1, "overfit",
          WARMUP_STEPS + 1 if captured else overfit, cycle=False)
     losses = [check_losses(m, f"overfit step {i + 1}")["total_loss"]
-              for i, m in enumerate(metrics_seen)]
+              for i, m in enumerate(runs.metrics)]
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"  overfit, {overfit} bf16 steps on one batch through the "
         f"{'captured' if captured else 'eager'} step (BASE_LR 0.01, no "
@@ -2635,31 +2793,181 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     return totals, errs, row
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from centermask2_tpu_torch.ops import _kernels
+# ------------------------------------------------------------- backbones
+BACKBONE_WINDOW_S = 2.0  # the windows of the backbones after R-50
+FROZEN_R50 = ("backbone.stem_conv1.", "backbone.res2_")  # FREEZE_AT 2
 
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
+
+def backbone_eval(dev, model, fixed: int = FIXED, min_size: int = SHORT,
+                  max_size: int = 1333, shapes=EVAL_SHAPES,
+                  sides=(20, 64, 240), graphs=None,
+                  pipeline_depth: int = 2) -> dict:
+    """``evaluate_dataset`` with ``model`` (not s2d: the f32 image padded
+    to ``fixed``) over the 8-image synthetic COCO set of ``[eval]``,
+    through a ``CapturedInference`` (one canvas, one graph) and eagerly,
+    with ``eval_runs``' launch gates; equal predictions and proposals
+    (``check_same_runs``: an 80-class random model may detect none of
+    the set's 4 categories). Returns the launches counted."""
+    import tempfile
+
+    modes = (("captured", {}, 1, "padded"),
+             ("eager", {"fn": model.inference}, 0, None))
+    with tempfile.TemporaryDirectory() as root:
+        ann = make_coco_dataset(root, shapes, sides=sides)
+        common = dict(image_root=root, fixed_size=fixed, min_size=min_size,
+                      max_size=max_size, progress_every=0,
+                      read_image=np.load, pipeline_depth=pipeline_depth)
+        runs, _, launches = eval_runs(model, ann, modes, common, len(shapes),
+                                      graphs)
+    check_same_runs(runs, ("captured", "eager"), "the captured and the "
+                    "eager loop")
+    return launches
+
+
+def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
+                   batch: int = TRAIN_BATCH, n_gt: int = TRAIN_GT,
+                   warmup: int = TRAIN_WARMUP, timed: int = TRAIN_TIMED,
+                   sides=(16, 600), graphs=None, timing: bool = True):
+    """The bf16 train step of ``cfg`` (FREEZE_AT 2: the ResNet's
+    ``stem_conv1`` and ``res2``) through ``train_loop``, captured and then
+    eager from the same weights: one launch of each kernel a step (or at
+    the warm-up and capture), one a replay by the profiler, finite losses,
+    the frozen stages bit-equal after the steps; ms a step, images/s, peak
+    memory and a replay's device time by the profiler; then one f32 step
+    through the kernels against the plain versions (``check_f32_step``).
+    Returns (the launches by kernel, the worst kernel/plain errors)."""
+    from centermask2_tpu_torch.train import CapturedTrainStep, batch_to_device
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
+
+    dev = torch.device(dev)
     card = card_line()
-    log(f"[card] {card}")
-    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices {torch.cuda.device_count()}")
+    max_gt = cfg.TPU.MAX_GT_INSTANCES
+    batches = [make_train_batch(300 + i, batch, fixed, n_gt, max_gt,
+                                sides=sides) for i in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs = TrainLoops(batches, dev, gen)
+    errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    images, gt = batch_to_device(batches[0], dev)
+    draws = torch.rand((batch, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN + max_gt),
+                       generator=gen, device=dev)
+    init_state = None
+    for capture in (None, False):  # the captured step (on CUDA), eager
+        model, opt, sched, step = build_trainer(
+            cfg, dev, init_state, capture=capture,
+            graphs=graphs if capture is None else None)
+        if init_state is None:
+            init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if n.startswith(FROZEN_R50)}
+        if not frozen or any(p.requires_grad for n, p in
+                             model.named_parameters() if n in frozen):
+            raise AssertionError(f"{name}: FREEZE_AT 2 froze "
+                                 f"{sorted(frozen)}")
+        captured = isinstance(step, CapturedTrainStep)
+        what = "captured" if captured else "eager"
+        n_eager = WARMUP_STEPS + 1 if captured else warmup
+        ms, wall, peak = runs.run(step, n_eager + timed, n_eager,
+                                  f"{name} {what} train_loop",
+                                  n_eager if captured else n_eager + timed)
+        last = [check_losses(m, f"{name} {what} step {i + 1}")
+                for i, m in enumerate(runs.metrics)][-1]
+        moved = [n for n, p in model.named_parameters()
+                 if n in frozen and not torch.equal(p, frozen[n])]
+        if moved:
+            raise AssertionError(f"{name} {what}: frozen {moved[:3]} moved")
+        log(f"  {name} {what} train step, {n_eager + timed} bf16 steps at "
+            f"{fixed}x{fixed}, B={batch}: one launch of each kernel "
+            + (f"in each of the {WARMUP_STEPS} warm-up steps and at the "
+               "capture, none at a replay" if captured else "a step")
+            + f"; losses finite (last total {last['total_loss']:.4f}); the "
+            f"{len(frozen)} stem_conv1 and res2 parameters bit-equal after "
+            f"the steps")
+        if captured:
+            replay_launches(lambda: step(images, gt, draws), 3,
+                            ("nms", "roi_align", "roi_align_backward"),
+                            f"{name} train step replays")
+        if timing:
+            log_train_times(ms, wall, peak, n_eager + timed, n_eager,
+                            f"{name}, {what}", batch, card)
+            profile_train_step(lambda: step(images, gt, draws),
+                               f"{name} bf16 train step, {what}")
+        del model, opt, sched, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    check_f32_step(cfg, dev, init_state, images, gt, draws, errs)
+    return runs.totals, errs
 
-    secs = _kernels.build()
-    log(f"[build] both sources (kernels 1, 2 and 2b) built in {secs:.1f} s")
-    for name, text in _kernels.build_logs().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
 
-    log("[kernels] each kernel against its plain version on the card")
-    nms_err = check_nms(dev)
-    roi_err = check_roi_align(dev)
+def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
+                    windows=(WINDOW_S, BACKBONE_WINDOW_S), train=None,
+                    eval_kw=None, graphs=None, train_graphs=None,
+                    timing: bool = True):
+    """The ``[backbones]`` phase: the other backbone families at full
+    width, bf16, random weights from seed 0. R-50: requests at each canvas
+    eagerly and captured (``graph_requests``, with the kernels held
+    against their plain versions on its requests' inputs), the f32
+    request at the first canvas with TF32 off, the eval entry point
+    (``backbone_eval``), training (``backbone_train``). R-101, MobileNetV2
+    and the two depthwise VoVNets: one request each at the first canvas.
+    The bf16 work runs at PyTorch's default settings, as the entry points
+    do (cuDNN's TF32 for MobileNetV2's f32 body). ``cfgs``: name -> config (``BACKBONES``' by default); ``train``,
+    ``eval_kw``: keyword arguments of ``backbone_train`` and
+    ``backbone_eval``; ``graphs``: the inference programs' capturing
+    object, ``train_graphs(model, opt, sched)`` the train step's. Returns
+    (the launches by kernel, the worst kernel/plain errors)."""
+    if cfgs is None:
+        cfgs = {n: build() for n, (build, _) in BACKBONES.items()}
+    dev = torch.device(dev)
+    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0}
+    errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
 
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def drop():
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    cfg = cfgs["R-50"]
+    model = build_model(cfg, dev)
+    add(graph_requests(dev, "R-50", model, canvases,
+                       windows[0] if timing else 0.0, graphs=graphs,
+                       errs=errs))
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    with exact_f32():
+        model32 = build_model(cfg32, dev)
+        add(graph_requests(dev, "R-50, TF32 off,", model32, canvases[:1],
+                           graphs=graphs))
+    del model32
+    drop()
+    add(backbone_eval(dev, model, graphs=graphs, **(eval_kw or {})))
+    del model
+    drop()
+    counts, train_errs = backbone_train(dev, cfg, "R-50", graphs=train_graphs,
+                                        timing=timing, **(train or {}))
+    add(counts)
+    for k in errs:
+        errs[k] = max(errs[k], train_errs[k])
+    drop()
+    for name in ("R-101", "MobileNetV2", "V-19-dw-eSE", "V-19-slim-dw-eSE"):
+        model = build_model(cfgs[name], dev)
+        add(graph_requests(dev, name, model, canvases[:1],
+                           windows[1] if timing else 0.0, graphs=graphs))
+        del model
+        drop()
+    return launches, errs
+
+
+def flagship_phases(dev, nms_err: int, roi_err: float):
+    """``[serve]``, ``[time]``, ``[graphs]``, ``[serving]``, ``[eval]``,
+    ``[export]`` and ``[train]``: the V-39 flagship and its serving
+    config. ``nms_err``, ``roi_err``: the worst kernel/plain errors of
+    ``[kernels]``. Returns the ``kernels`` rows of kernels 1, 2 and 2b
+    and the launches each phase counted."""
+    card = card_line()
     log("[serve] V-39-eSE flagship, random weights (seed 0), cls bias 0")
     models, launches, images = serve(dev)
 
@@ -2730,11 +3038,52 @@ def main() -> int:
     nms["max_abs_err"] = max(nms["max_abs_err"], train_errs["nms"])
     roi["max_abs_err"] = max(roi["max_abs_err"], train_errs["roi_align"])
     bwd["max_abs_err"] = train_errs["roi_align_backward"]
+    return nms, roi, bwd, (launches, graph_launches, serving_launches,
+                           per_level, eval_launches, export_launches,
+                           train_launches)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from centermask2_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+
+    secs = _kernels.build()
+    log(f"[build] both sources (kernels 1, 2 and 2b) built in {secs:.1f} s")
+    for name, text in _kernels.build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    log("[kernels] each kernel against its plain version on the card")
+    nms_err = check_nms(dev)
+    roi_err = check_roi_align(dev)
+
+    # the V-39 phases run f32 without TF32, as their f32 gates (the s2d
+    # stem within STEM_TOL, f32 replays against eager) and f32 times
+    # need; [backbones] runs at PyTorch's defaults, as the entry points do
+    with exact_f32():
+        nms, roi, bwd, v39_launches = flagship_phases(dev, nms_err, roi_err)
+
+    log("[backbones] R-50, R-101, MobileNetV2, V-19-dw-eSE and "
+        "V-19-slim-dw-eSE from their yamls at full width, bf16, random "
+        f"weights (seed 0) ({card})")
+    bb_launches, bb_errs = backbones_phase(dev)
+    for row in (nms, roi, bwd):
+        row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]])
 
     for row in (nms, roi, bwd):
-        row["launches"] = sum(c.get(row["name"], 0) for c in (
-            launches, graph_launches, serving_launches, per_level,
-            eval_launches, export_launches, train_launches))
+        row["launches"] = sum(c.get(row["name"], 0)
+                              for c in (*v39_launches, bb_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")

@@ -159,8 +159,8 @@ def test_eval_phase_rehearsal(rehearsal, capsys):
     assert launches == {"nms": 33, "roi_align": 33}
     out = capsys.readouterr().out
     assert "AP bbox 100.0000, segm 100.0000" in out
-    assert "predictions of the default loop, the eager loop, the full " \
-        "pack and their programs equal" in out
+    assert ") of the default loop, the eager loop, the full pack and " \
+        "their programs equal" in out and "eval: predictions (" in out
     for name, n in (("tight compute", 3), ("pad-back", 3), ("full pack", 1)):
         assert f"eval {name} program: {n} graphs (one a canvas met)" in out
     assert "every metric present and finite" in out
@@ -175,9 +175,10 @@ def test_eval_phase_rehearsal(rehearsal, capsys):
 
 
 def test_graphs_phase_rehearsal(rehearsal, capsys):
-    """``[graphs]`` at 64x64 and 96x64: per dtype and canvas, 3 launches
-    of each kernel at the first call (2 warm-up requests and the capture)
-    and none at a replay; the replays equal the eager requests."""
+    """``[graphs]`` at 64x64 and 96x64: per dtype and canvas, one launch
+    of each kernel by the eager request, 3 at the first call (2 warm-up
+    requests and the capture) and none at a replay; the replays equal the
+    eager requests slot by slot."""
     from test_torch_captured import FakeGraphs
 
     model = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()),
@@ -186,15 +187,17 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
         "cpu", {"bfloat16": model, "float32": model}, {},
         canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs(),
         timing=False)
-    assert launches == {"nms": 12, "roi_align": 12}
+    assert launches == {"nms": 16, "roi_align": 16}
     out = capsys.readouterr().out
-    assert "f32 64x64 replay vs eager scores: max abs err 0.000e+00" in out
-    assert "graph bf16 96x64 replay vs eager: valid masks equal True, " \
-        "every output bit-equal True" in out
-    assert "launches at the capture {'nms': 3, 'roi_align': 3, " \
-        "'roi_align_backward': 0} (2 warm-up requests + the capture), at a " \
-        "replay {'nms': 0, 'roi_align': 0, 'roi_align_backward': 0}" in out
-    assert "2 graphs captured" in out
+    for canvas in ("64x64", "96x64"):
+        assert f"graph f32 {canvas} replay vs eager scores: max abs err " \
+            "0.000e+00" in out
+        assert f"graph f32 {canvas}: " in out
+    assert out.count("kernels 1 and 2 launched once by the eager request, "
+                     "3 times by the capture (2 warm-up requests + the "
+                     "capture), not by a replay; the replay equals the eager "
+                     "request slot by slot, every output bit-equal True") == 4
+    assert out.count("graph f32: 2 graphs captured") == 2
 
 
 def test_export_phase_rehearsal(rehearsal, capsys, monkeypatch):
@@ -324,3 +327,82 @@ def test_eval_dataset_covers_every_area_range(tmp_path):
                 for h, w in chip_smoke.EVAL_SHAPES}
     assert canvases == {(800, 1344), (1344, 800), (800, 800)}
     assert get_cfg().TPU.FIXED_EDGE_SIZE == chip_smoke.FIXED
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.BACKBONES))
+def test_backbone_configs_are_their_yamls(name):
+    """``[backbones]`` builds its configs in Python (the card's machine may
+    have no yaml package): each equals its yaml merged over the
+    defaults."""
+    import os
+
+    build, yaml_name = chip_smoke.BACKBONES[name]
+    want = get_cfg()
+    want.merge_from_file(os.path.join(chip_smoke.REPO, "configs",
+                                      "centermask", yaml_name))
+    assert build() == want
+
+
+def _tiny_backbone_cfg(cfg):
+    """A ``[backbones]`` config at narrow heads (the ResNets also at narrow
+    trunks of their full depth), in f32, with the training capacities of
+    the ``[train]`` rehearsal."""
+    cfg.merge_from_list([
+        "MODEL.FCOS.NUM_CLASSES", "4", "MODEL.FPN.OUT_CHANNELS", "32",
+        "MODEL.ROI_MASK_HEAD.CONV_DIM", "8",
+        "MODEL.ROI_MASKIOU_HEAD.CONV_DIM", "8",
+        "MODEL.FCOS.POST_NMS_TOPK_TEST", "10", "TPU.COMPUTE_DTYPE", "float32",
+        "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+        "MODEL.RESNETS.STEM_OUT_CHANNELS", "8",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
+        "TPU.NMS_CANDIDATES", "50", "MODEL.FCOS.PRE_NMS_TOPK_TRAIN", "50",
+        "MODEL.FCOS.POST_NMS_TOPK_TRAIN", "20",
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "32",
+        "TPU.MAX_FG_PROPOSALS", "8", "TPU.MAX_GT_INSTANCES", "8"])
+    return cfg
+
+
+def test_backbones_phase_rehearsal(rehearsal, capsys):
+    """``[backbones]`` on the CPU at 64x64 and 96x64: R-50's requests
+    eagerly and captured at both canvases (one launch of kernels 1 and 2
+    an eager request, 3 at a capture, none at a replay; the replay equal
+    to the eager request; the kernels held on its inputs), its f32 request
+    at the first canvas, the eval entry point over 3 images (one graph),
+    its training captured and eager with the frozen stages unchanged and
+    the f32 step against the plain versions; one request each of R-101,
+    MobileNetV2 and the two depthwise VoVNets."""
+    from test_torch_captured import FakeGraphs, _state
+
+    cfgs = {n: _tiny_backbone_cfg(build())
+            for n, (build, _) in chip_smoke.BACKBONES.items()}
+    launches, errs = chip_smoke.backbones_phase(
+        "cpu", cfgs, canvases=((100, 64, 64), (103, 96, 64)),
+        train=dict(fixed=64, batch=2, n_gt=3, warmup=1, timed=2,
+                   sides=(8, 40)),
+        eval_kw=dict(fixed=256, min_size=128, max_size=250,
+                     shapes=((128, 250), (250, 128), (128, 128)),
+                     sides=(20, 64, 110), pipeline_depth=0),
+        graphs=FakeGraphs(),
+        train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
+        timing=False)
+    # R-50: 2 canvases x (1 + 3) + the f32 request's 4 + eval 3 + 3 +
+    # train 4 (captured) + 3 (eager); the other four backbones 4 each
+    assert launches == {"nms": 41, "roi_align": 41, "roi_align_backward": 7}
+    assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    out = capsys.readouterr().out
+    for what in ("R-50 f32 64x64", "R-50 f32 96x64",
+                 "R-50, TF32 off, f32 64x64", "R-101 f32 64x64",
+                 "MobileNetV2 f32 64x64", "V-19-dw-eSE f32 64x64",
+                 "V-19-slim-dw-eSE f32 64x64"):
+        assert f"  {what}: " in out and f"{what} replay vs eager scores" in out
+        assert f"{what[:-6]}: 1 graphs captured" in out or \
+            f"{what[:-6]}: 2 graphs captured" in out
+    assert out.count("every output bit-equal True") == 7
+    assert "nms R-50 f32 64x64 request: N=" in out
+    assert "eval captured: 3 images" in out and "eval eager: 3 images" in out
+    assert "eval padded program: 1 graphs" in out
+    assert ") of the captured and the eager loop equal" in out
+    for what in ("captured", "eager"):
+        assert f"R-50 {what} train step, " in out
+    assert "stem_conv1 and res2 parameters bit-equal after the steps" in out
+    assert "f32 train step, kernels vs plain: " in out

@@ -174,15 +174,17 @@ def test_build_on_cpu_runs_bf16_inference():
         model.inference(img[:, :60])
 
 
-@pytest.mark.parametrize("key,value", [
-    ("TPU.POOLER_SAMPLING_RATIO", 0),
-    ("MODEL.KEYPOINT_ON", True), ("MODEL.VOVNET.CONV_BODY", "V-19-slim-dw-eSE"),
-    ("MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone"),
-    ("TPU.REMAT_BACKBONE", True), ("MODEL.VOVNET.NORM", "BN"),
-    ("MODEL.VOVNET.NORM", "SyncBN")])
-def test_unported_options_raise(key, value):
+@pytest.mark.parametrize("opts", [
+    ["TPU.POOLER_SAMPLING_RATIO", 0], ["MODEL.KEYPOINT_ON", True],
+    ["MODEL.FCOS.USE_DEFORMABLE", True],
+    ["MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone",
+     "MODEL.RESNETS.RES5_DILATION", 2],
+    ["TPU.REMAT_BACKBONE", True], ["MODEL.VOVNET.NORM", "BN"],
+    ["MODEL.VOVNET.NORM", "SyncBN"], ["MODEL.ROI_MASK_HEAD.NORM", "BN"]],
+    ids=lambda opts: "-".join(map(str, opts)))
+def test_unported_options_raise(opts):
     cfg = _small_cfg()
-    cfg.merge_from_list([key, str(value)])
+    cfg.merge_from_list([str(v) for v in opts])
     with pytest.raises(NotImplementedError):
         build_centermask(cfg, device="cpu")
 

@@ -402,9 +402,12 @@ def test_convert_checkpoint_matches_jax():
                                atol=2e-2)
     np.testing.assert_allclose(res.pred_masks[0][:n].numpy(),
                                np.asarray(out.pred_masks[0])[:n], atol=2e-3)
-    with pytest.raises(NotImplementedError,
-                       match="The other backbones and norms"):
-        tconv.convert_checkpoint(sd, backbone="resnet")
+    # read as a ResNet's, the VoVNet keys are left unused by both
+    want_r, want_rep = jconv.convert_checkpoint(sd, backbone="resnet")
+    got_r, got_rep = tconv.convert_checkpoint(sd, backbone="resnet")
+    assert got_rep["unused_torch_keys"] == want_rep["unused_torch_keys"]
+    assert any("stem_1" in k for k in got_rep["unused_torch_keys"])
+    assert "backbone" not in got_r and got_r.keys() == want_r.keys()
     with pytest.raises(NotImplementedError,
                        match="Deformable conv, keypoints, adaptive"):
         tconv.convert_checkpoint(

@@ -15,6 +15,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
+optax = pytest.importorskip("optax")
 
 from centermask2_tpu.models import CenterMask as JaxCenterMask  # noqa: E402
 from centermask2_tpu.models import GroundTruth as JaxGroundTruth  # noqa: E402
@@ -180,6 +181,109 @@ def test_whole_train_step_matches_jax():
                                    err_msg=key_)
         compared += 1
     assert compared == len(named)
+
+
+# FPN 256, the R-50 yaml's width: at 64 channels GroupNorm(32) normalizes
+# pairs of values on the 1x1 P6 and P7 maps of a 64x64 canvas, whose
+# backward turns f32 rounding into gradients a few percent apart
+R50_KW = dict(STEP_KW, backbone_type="resnet", fpn_out_channels=256,
+              fpn_in_features=("res3", "res4", "res5"),
+              resnet_res2_out_channels=32, resnet_stem_out_channels=8,
+              resnet_width_per_group=8)
+
+
+def test_r50_train_step_with_freeze_at_2_matches_jax():
+    """One f32 SGD step of a narrow ResNet-50 (RES2_OUT_CHANNELS 32,
+    STEM_OUT_CHANNELS 8, WIDTH_PER_GROUP 8; FPN 256, the other heads of
+    STEP_KW; parameters drawn as ``test_torch_backbones.py`` draws them) with
+    FREEZE_AT 2, the R-50 yaml's value, against the JAX package's loss,
+    gradient and optax chain: every loss within 1e-5 relative, every
+    parameter's update within 1e-4 of its tensor's largest (the
+    gradients' tolerance above) plus two f32 spacings of the parameter;
+    the stem and res2, frozen in both, unchanged bit for bit."""
+    from centermask2_tpu.train.optimizer import make_optimizer as jax_opt
+    from test_torch_backbones import numpy_params
+
+    from centermask2_tpu_torch.train import make_optimizer, make_train_step
+
+    rng, images, boxes, classes, patches = _step_batch()
+    B, G = classes.shape
+    jm = JaxCenterMask(**R50_KW, dtype=jnp.float32)
+    params = numpy_params(jm, rng, jnp.asarray(images[:1]))
+    params["fcos_head"]["cls_logits"]["bias"][:] = 0.0
+    jgt = JaxGroundTruth(boxes=jnp.asarray(boxes),
+                         classes=jnp.asarray(classes),
+                         valid=jnp.ones((B, G), bool),
+                         mask_patches=jnp.asarray(patches))
+    key = jax.random.PRNGKey(1)
+
+    def f(p):
+        losses = jm.apply({"params": p}, jnp.asarray(images), jgt, key,
+                          method=JaxCenterMask.loss)
+        return sum(losses.values()), losses
+
+    jp = jax.tree.map(jnp.asarray, params)
+    (total, want), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(jp)
+    kw = dict(warmup_iters=0, warmup_factor=1.0, freeze_at=2)
+    chain = jax_opt(0.02, (100,), **kw)
+    updates, _ = chain.update(grads, chain.init(jp), jp)
+    jnew = state_dict_from_jax(jax.tree.map(
+        np.asarray, optax.apply_updates(jp, updates)))
+    draws = np.stack([np.asarray(jax.random.uniform(k, (10 + G,)))
+                      for k in jax.random.split(key, B)])
+
+    port = CenterMask(**R50_KW, dtype=torch.float32)
+    load_jax_params(port, params)
+    init = {n: t.detach().clone() for n, t in port.state_dict().items()}
+    opt, sched = make_optimizer(port, 0.02, (100,), **kw)
+    gt = GroundTruth(t(boxes), t(classes), torch.ones((B, G), dtype=torch.bool),
+                     t(patches))
+    got = make_train_step(port, opt, sched, capture=False)(
+        t(images), gt, t(draws))
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(got["total_loss"]), float(total),
+                               rtol=1e-5)
+    after = port.state_dict()
+    frozen = []
+    for name, (path, value) in jnew.items():
+        delta = (after[name] - init[name]).numpy()
+        want_delta = value.numpy() - init[name].numpy()
+        if name.startswith(("backbone.stem_conv1.", "backbone.res2_")):
+            frozen.append(name)
+            assert not np.abs(want_delta).max() > 0, name
+            assert torch.equal(after[name], init[name]), name
+            continue
+        tol = 1e-4 * np.abs(want_delta).max() \
+            + 2 * np.spacing(np.abs(value.numpy()))
+        assert (np.abs(delta - want_delta) <= tol).all(), name
+    # a conv weight and FrozenBN's two leaves for the stem, res2's nine
+    # convs and its shortcut
+    assert len(frozen) == 3 * (1 + 9 + 1)
+
+
+@pytest.mark.parametrize("backbone,want", [
+    ("resnet", ("stem_conv1.", "res2_")),
+    ("mobilenet", ("features0_", "features1."))])
+def test_freeze_at_2_freezes_the_stem_and_first_stage(backbone, want):
+    """FREEZE_AT 2 takes exactly ResNet's stem and res2, and MobileNet's
+    stem (``features0_*``) and first block (``features1``, not
+    ``features10`` to ``features17``), as the JAX masks do."""
+    from centermask2_tpu_torch.train.optimizer import param_groups
+
+    kw = dict(R50_KW) if backbone == "resnet" else dict(
+        STEP_KW, backbone_type="mobilenet",
+        fpn_in_features=("res3", "res4", "res5"))
+    model = CenterMask(**kw, dtype=torch.float32)
+    param_groups(model, 1e-4, 0.0, freeze_at=2)
+    frozen = {n[len("backbone."):] for n, p in model.named_parameters()
+              if not p.requires_grad}
+    assert frozen and all(n.startswith(want) for n in frozen)
+    assert {n for n, _ in model.backbone.named_parameters()
+            if n.startswith(want)} == frozen
+    assert all(p.requires_grad for n, p in model.named_parameters()
+               if not n.startswith("backbone."))
 
 
 def test_loss_draws_from_a_generator():
