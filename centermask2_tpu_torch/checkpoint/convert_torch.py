@@ -25,10 +25,9 @@ Weight transforms:
   the weight columns are permuted accordingly.
 
 Missing and unused keys are reported, not fatal (the check_keys contract
-of deploy_utils.py:31-43). The keypoint head (ROADMAP queue 1,
-'Deformable conv, keypoints, adaptive ROIAlign') raises
-``NotImplementedError``. As in the JAX converter, FPN norms are not
-converted.
+of deploy_utils.py:31-43). The keypoint head's convs and deconv are
+converted (``convert_keypoint_head``). As in the JAX converter, FPN norms
+and the deformable convs' offsets are not converted.
 """
 
 from __future__ import annotations
@@ -287,6 +286,16 @@ def convert_maskiou_head(cv: Converter, tpre: str, fpre: str,
     cv.linear(f"{tpre}maskiou", f"{fpre}maskiou")
 
 
+def convert_keypoint_head(cv: Converter, tpre: str, fpre: str,
+                          num_conv: int = 8) -> None:
+    """The KRCNN head: conv_fcn{1..num_conv} and the score_lowres deconv
+    (its (I, O, kh, kw) weight as the JAX (kh, kw, O, I) kernel)."""
+    for k in range(1, num_conv + 1):
+        cv.conv(f"{tpre}conv_fcn{k}", f"{fpre}conv_fcn{k}")
+    cv.deconv(f"{tpre}score_lowres", f"{fpre}score_lowres_kernel",
+              f"{fpre}score_lowres_bias")
+
+
 def convert_checkpoint(
     state_dict: Dict[str, np.ndarray],
     conv_body: str = "V-39-eSE",
@@ -297,6 +306,7 @@ def convert_checkpoint(
     num_levels: int = 5,
     mask_num_conv: int = 4,
     maskiou_num_conv: int = 4,
+    keypoint_num_conv: int = 8,
     fpn_stages=(3, 4, 5),
     top_levels: int = 2,
     backbone: str = "vovnet",
@@ -306,10 +316,6 @@ def convert_checkpoint(
     ``backbone``: "vovnet" (the body ``conv_body``), "resnet" (of
     ``resnet_depth``) or "mobilenet"."""
     sd = _strip_prefixes(state_dict)
-    if any(k.startswith("roi_heads.keypoint_head.") for k in sd):
-        raise NotImplementedError(
-            "the keypoint head is not ported yet (ROADMAP queue 1, "
-            "'Deformable conv, keypoints, adaptive ROIAlign')")
     cv = Converter(sd)
 
     # backbone-only checkpoints (vovnet39_ese_detectron2.pth) have bare keys
@@ -331,6 +337,8 @@ def convert_checkpoint(
                       mask_num_conv)
     convert_maskiou_head(cv, "roi_heads.maskiou_head.",
                          "roi_heads/maskiou_head/", maskiou_num_conv)
+    convert_keypoint_head(cv, "roi_heads.keypoint_head.",
+                          "roi_heads/keypoint_head/", keypoint_num_conv)
     return cv.nest(), cv.report()
 
 

@@ -13,7 +13,9 @@ port's state_dict, inverting the transforms of the JAX package's
 
 Module paths map one to one (the port mirrors the JAX module names);
 only leaf names change: ``kernel`` -> ``weight``, a GroupNorm's
-``gn/scale`` -> ``gn.weight``. This module imports nothing of JAX: it
+``gn/scale`` -> ``gn.weight``, and the keypoint head's deconv, whose JAX
+leaves sit on the head (``score_lowres_kernel``, ``score_lowres_bias``),
+becomes its module ``score_lowres`` (``weight``, ``bias``). This module imports nothing of JAX: it
 reads plain arrays.
 """
 
@@ -40,6 +42,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 def _leaf(path: Tuple[str, ...], v: np.ndarray,
           maskiou_resolution: int) -> Tuple[str, np.ndarray]:
     *mod, name = path
+    if name in ("score_lowres_kernel", "score_lowres_bias"):
+        mod, name = [*mod, "score_lowres"], name[len("score_lowres_"):]
     if name == "kernel":
         if v.ndim == 4:
             v = np.transpose(v, (3, 2, 0, 1))

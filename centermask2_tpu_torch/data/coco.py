@@ -8,8 +8,10 @@ normalize, pad to the canvas, and fixed-capacity ground truth: padded
 boxes, classes, validity and, for each instance, its polygons rasterized
 once over its own box into a P x P patch (``CenterMask.loss`` resamples
 the patches at the proposals). cv2 is imported by the rasterizers only;
-there is no other rasterizer. Keypoints wait for ROADMAP queue 1,
-'Deformable conv, keypoints, adaptive ROIAlign'.
+there is no other rasterizer. With ``with_keypoints`` (MODEL.KEYPOINT_ON)
+each instance also carries its COCO keypoints in network input
+coordinates, flipped as detectron2 flips them (x mirrored, left and
+right members swapped) and zeroed where not labeled.
 """
 
 from __future__ import annotations
@@ -86,15 +88,42 @@ def mask_patch_from_polygons(polygons: List, box: np.ndarray,
     return mask.astype(np.float32)
 
 
+# detectron2's COCO person-keypoint horizontal-flip map: the left/right
+# members swapped by a flip (0, the nose, has no pair)
+COCO_KEYPOINT_HFLIP_PAIRS = ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10),
+                             (11, 12), (13, 14), (15, 16))
+
+
+def filter_images_with_few_keypoints(ds: CocoDataset, min_kp: int) -> int:
+    """Drop the training images whose annotations carry fewer than
+    ``min_kp`` visible keypoints in all (detectron2
+    filter_images_with_few_keypoints,
+    MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE). Changes ``ds.ids``;
+    returns the number of images dropped."""
+    if min_kp <= 0:
+        return 0
+
+    def n_visible(img_id):
+        return sum(int(sum(1 for v in (a.get("keypoints") or [])[2::3]
+                           if v > 0))
+                   for a in ds.img_to_anns[img_id])
+
+    before = len(ds.ids)
+    ds.ids = [i for i in ds.ids if n_visible(i) >= min_kp]
+    return before - len(ds.ids)
+
+
 def load_train_example(ds: CocoDataset, img_id: int, *, short_edge: int,
                        max_size: int = 1333, pad_to: Tuple[int, int],
                        max_gt: int = 100, patch_size: int = 112,
-                       hflip: bool = False,
+                       hflip: bool = False, with_keypoints: bool = False,
+                       num_keypoints: int = 17,
                        read_image: ReadImage = read_image_bgr
                        ) -> Dict[str, np.ndarray]:
     """One training example: the resized, flipped, normalized image padded
     to ``pad_to``, and padded ground truth. ``read_image``: path -> HWC
-    uint8 BGR array."""
+    uint8 BGR array. ``with_keypoints`` adds "gt_keypoints" (max_gt, K, 3)
+    x, y, visibility in network input coordinates."""
     img = read_image(ds.image_path(img_id))
     h, w = img.shape[:2]
     newh, neww = compute_resize_shape(h, w, short_edge, max_size)
@@ -111,6 +140,8 @@ def load_train_example(ds: CocoDataset, img_id: int, *, short_edge: int,
     classes = np.zeros((max_gt,), np.int32)
     valid = np.zeros((max_gt,), bool)
     patches = np.zeros((max_gt, patch_size, patch_size), np.float32)
+    keypoints = (np.zeros((max_gt, num_keypoints, 3), np.float32)
+                 if with_keypoints else None)
     for i, ann in enumerate(ds.img_to_anns[img_id][:max_gt]):
         x, y, bw, bh = ann["bbox"]
         box = np.array([x * sx, y * sy, (x + bw) * sx, (y + bh) * sy],
@@ -132,10 +163,25 @@ def load_train_example(ds: CocoDataset, img_id: int, *, short_edge: int,
                     p[:, 0] = neww - p[:, 0]
                 scaled.append(p.reshape(-1))
             patches[i] = mask_patch_from_polygons(scaled, boxes[i], patch_size)
-    return {"image": padded, "gt_boxes": boxes, "gt_classes": classes,
-            "gt_valid": valid, "gt_mask_patches": patches,
-            "image_size": np.array([newh, neww], np.int32),
-            "image_id": img_id}
+        if keypoints is not None and ann.get("keypoints"):
+            kp = np.asarray(ann["keypoints"], np.float32).reshape(-1, 3)
+            kp = kp[:num_keypoints]
+            kp[:, 0] *= sx
+            kp[:, 1] *= sy
+            if hflip:  # detectron2 transform_keypoint_annotations
+                kp[:, 0] = neww - kp[:, 0]
+                for a, b in COCO_KEYPOINT_HFLIP_PAIRS:
+                    if a < len(kp) and b < len(kp):
+                        kp[[a, b]] = kp[[b, a]]
+            kp[kp[:, 2] == 0] = 0  # not labeled: zeroed, as detectron2
+            keypoints[i, :len(kp)] = kp
+    out = {"image": padded, "gt_boxes": boxes, "gt_classes": classes,
+           "gt_valid": valid, "gt_mask_patches": patches,
+           "image_size": np.array([newh, neww], np.int32),
+           "image_id": img_id}
+    if keypoints is not None:
+        out["gt_keypoints"] = keypoints
+    return out
 
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_classes", "gt_valid",
@@ -157,6 +203,7 @@ def train_batches(
     random_flip: str = "horizontal",  # INPUT.RANDOM_FLIP: horizontal|none
     sampling: str = "choice",  # INPUT.MIN_SIZE_TRAIN_SAMPLING: choice|range
     tight_pad: bool = False,  # TPU.TRAIN_TIGHT_PAD
+    with_keypoints: bool = False,  # MODEL.KEYPOINT_ON: adds gt_keypoints
     read_image: ReadImage = read_image_bgr,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless (or ``epochs``-bounded) shuffled batches with multi-scale
@@ -210,11 +257,11 @@ def train_batches(
                     ds, job["img_id"], short_edge=job["short_edge"],
                     max_size=max_size, pad_to=batch_pad, max_gt=max_gt,
                     patch_size=patch_size, hflip=job["hflip"],
-                    read_image=read_image)
+                    with_keypoints=with_keypoints, read_image=read_image)
 
             examples = list(pool.map(load, jobs) if pool else map(load, jobs))
-            batch = {k: np.stack([e[k] for e in examples])
-                     for k in BATCH_KEYS}
+            keys = BATCH_KEYS + (("gt_keypoints",) if with_keypoints else ())
+            batch = {k: np.stack([e[k] for e in examples]) for k in keys}
             batch["image_ids"] = [e["image_id"] for e in examples]
             return batch
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import time
 from collections import deque
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +42,7 @@ def _to_host(out, cuda: bool) -> Tuple[Dict[str, torch.Tensor],
     queued before the next request: a captured program's outputs are the
     static buffers its next replay rewrites. On the CPU the outputs are
     the host's already."""
-    fields = out._asdict()
+    fields = {k: t for k, t in out._asdict().items() if t is not None}
     if not cuda:
         return fields, None
     host = {}
@@ -72,6 +72,7 @@ def evaluate_dataset(
     tight_compute: bool = False,
     read_image: Callable[[str], np.ndarray] = read_image_bgr,
     fn: Optional[Callable] = None,
+    kpt_oks_sigmas: Optional[Sequence[float]] = None,
 ):
     """Evaluate ``model`` (a ``CenterMask`` in eval mode, on its device)
     over a COCO-format dataset, one image per request.
@@ -100,6 +101,11 @@ def evaluate_dataset(
     capture seconds counted in ``avg_ms``) and ``model.inference`` on the
     CPU; pass ``model.inference`` for the eager loop on CUDA, or a
     ``CapturedInference`` built once to reuse its graphs over calls.
+
+    A keypoint model's ``pred_keypoints`` go through the postprocess
+    (scaled to the original image) into the evaluator, which scores the
+    "keypoints" task by OKS with ``kpt_oks_sigmas``
+    (TEST.KEYPOINT_OKS_SIGMAS; COCO's 17 when empty).
     """
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
@@ -120,7 +126,8 @@ def evaluate_dataset(
         with open(ann) as f:
             gt = COCOGt(json.load(f))
     evaluator = COCOEvaluator(gt, tasks=tasks,
-                              category_id_map=ds.contiguous_to_cat)
+                              category_id_map=ds.contiguous_to_cat,
+                              kpt_oks_sigmas=kpt_oks_sigmas)
     ids = ds.ids[:limit] if limit else ds.ids
 
     def produce():
@@ -146,8 +153,10 @@ def evaluate_dataset(
         o = {k: t.numpy() for k, t in out.items()}
         v = o["valid"][0]
         wrapped = single_wrap_outputs(
-            [o[k][0][v] for k in ("locations", "mask_scores", "pred_boxes",
-                                  "pred_classes", "pred_masks", "scores")])
+            [o[k][0][v] if k in o else None
+             for k in ("locations", "mask_scores", "pred_boxes",
+                       "pred_classes", "pred_masks", "scores",
+                       "pred_keypoints")])
         h, w = pre["original_hw"]
         post = detector_postprocess(wrapped, h, w, short=pre["short"],
                                     max_size=pre["max_size"])

@@ -7,7 +7,8 @@ graph per input signature it is called with (shapes and dtypes of the
 image and of ``valid_hw``, and the canvas: the full canvas, each tight
 s2d canvas, pad-back or tight compute). A graph owns static input
 buffers and static outputs; a call copies the request into the inputs,
-replays, and returns the static outputs, which the next replay
+replays, and returns the static outputs (a keypoint model's
+``pred_keypoints`` among them), which the next replay
 overwrites: the caller copies them out first (``evaluation/loop.py``
 queues the copy to the host behind an event, which the stream orders
 before the next replay). All the graphs of one object share one memory

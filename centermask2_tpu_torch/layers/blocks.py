@@ -27,8 +27,8 @@ GN_EPS = 1e-5
 # Initializer names (the JAX package's flax initializers):
 # "kaiming_fan_out" = variance_scaling(2, fan_out, normal) (c2_msra_fill),
 # "lecun" = lecun_normal (truncated normal, fan_in), "xavier" =
-# variance_scaling(1/3, fan_in, uniform) (c2_xavier_fill), and a float
-# = normal(stddev).
+# variance_scaling(1/3, fan_in, uniform) (c2_xavier_fill), "zeros", and a
+# float = normal(stddev).
 Init = Union[str, float]
 
 
@@ -54,6 +54,8 @@ def init_weight_(weight: torch.Tensor, init: Init,
         elif init == "xavier":
             lim = math.sqrt(1.0 / fan_in)
             weight.uniform_(-lim, lim, generator=generator)
+        elif init == "zeros":
+            weight.zero_()
         elif isinstance(init, float):
             weight.normal_(0.0, init, generator=generator)
         else:
@@ -97,16 +99,19 @@ class Conv2d(nn.Module):
 
 
 class ConvTranspose2d(nn.Module):
-    """torch ConvTranspose2d(k=2, s=2, p=0) in the compute dtype (JAX
-    ``blocks.py:82-117``, the mask-head upsampler). ``weight`` is
+    """torch ConvTranspose2d in the compute dtype: k=2, s=2, p=0 is the
+    mask-head upsampler (JAX ``blocks.py:82-117``), k=4, s=2, p=1 the
+    keypoint head's (JAX ``keypoint_head.py:45-60``). ``weight`` is
     (I, O, kh, kw)."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int] = (2, 2),
-                 strides: Tuple[int, int] = (2, 2), use_bias: bool = True,
+                 strides: Tuple[int, int] = (2, 2),
+                 padding: Tuple[int, int] = (0, 0), use_bias: bool = True,
                  init: Init = "lecun", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = tuple(strides)
+        self.padding = tuple(padding)
         self.init = init
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
@@ -123,7 +128,7 @@ class ConvTranspose2d(nn.Module):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), b,
-                                  self.stride)
+                                  self.stride, self.padding)
 
 
 class Linear(nn.Module):
@@ -291,8 +296,11 @@ class ConvNormAct(nn.Module):
 
 def reset_parameters(module: nn.Module,
                      generator: Optional[torch.Generator]) -> None:
-    """Re-draw every conv and linear weight from ``generator`` in module
-    order (norms and scales keep their constant initial values)."""
+    """Re-draw every conv, deformable conv and linear weight from
+    ``generator`` in module order (norms and scales keep their constant
+    initial values)."""
+    from .deform import DeformConvBlock
+
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear, DeformConvBlock)):
             m.reset_parameters(generator)

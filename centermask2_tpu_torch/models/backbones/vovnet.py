@@ -9,9 +9,10 @@ residual on non-first blocks), and a ceil-mode 3x3/s2 max-pool opening
 stages 3-5. The depthwise bodies (``V-19-*dw-eSE``) take depthwise
 blocks (3x3 depthwise, 1x1 pointwise, the norm after the pointwise conv)
 for stem_2, stem_3 and every OSA layer, with a 1x1 reduction where an
-OSA module's input width differs from its stage width. DCN stages are
-not ported (ROADMAP queue 1, 'Deformable conv, keypoints, adaptive
-ROIAlign').
+OSA module's input width differs from its stage width. The stages of
+``stage_with_dcn`` (MODEL.VOVNET.STAGE_WITH_DCN, standard bodies) take
+deformable 3x3 layers (``layers/deform.py::DeformConvBlock``, DCN v2 with
+``with_modulated_dcn``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import (Conv2d, ConvNormAct, eSEModule, get_norm,
-                       max_pool2d_ceil)
+from ...layers import (Conv2d, ConvNormAct, DeformConvBlock, eSEModule,
+                       get_norm, max_pool2d_ceil)
 
 # Stage specs (reference vovnet.py:30-108, JAX vovnet.py:35-72).
 VoVNet19_slim_dw_eSE = dict(
@@ -245,11 +246,14 @@ class OSAModule(nn.Module):
     forward (vovnet.py:326). ``depthwise``: the layers are
     ``DWConvBlock``s, after a 1x1 ``reduction`` to ``stage_ch`` when the
     input is wider or narrower (the concat still takes the input as it
-    came)."""
+    came); else with ``with_dcn`` they are ``DeformConvBlock``s (JAX
+    ``vovnet.py:369-375``)."""
 
     def __init__(self, in_channels: int, stage_ch: int, concat_ch: int,
                  layer_per_block: int, identity: bool = False,
-                 depthwise: bool = False, norm: str = "FrozenBN",
+                 depthwise: bool = False, with_dcn: bool = False,
+                 with_modulated_dcn: bool = False,
+                 deformable_groups: int = 1, norm: str = "FrozenBN",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.identity = identity
@@ -260,9 +264,16 @@ class OSAModule(nn.Module):
                                          dtype=dtype)
         ch = in_channels
         for i in range(layer_per_block):
-            self.add_module(f"layer{i}", DWConvBlock(
-                stage_ch, norm=norm, dtype=dtype) if depthwise else
-                ConvNormAct(ch, stage_ch, norm=norm, dtype=dtype))
+            if depthwise:
+                layer = DWConvBlock(stage_ch, norm=norm, dtype=dtype)
+            elif with_dcn:
+                layer = DeformConvBlock(
+                    ch, stage_ch, modulated=with_modulated_dcn,
+                    deformable_groups=deformable_groups, norm=norm,
+                    dtype=dtype)
+            else:
+                layer = ConvNormAct(ch, stage_ch, norm=norm, dtype=dtype)
+            self.add_module(f"layer{i}", layer)
             ch = stage_ch
         self.layer_per_block = layer_per_block
         self.concat = ConvNormAct(
@@ -304,6 +315,9 @@ class VoVNet(nn.Module):
                                                 "stage5"),
                  norm: str = "FrozenBN", in_channels: int = 3,
                  s2d_input: bool = False,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4,
+                 with_modulated_dcn: bool = False,
+                 deformable_groups: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         spec = STAGE_SPECS[body]
@@ -337,7 +351,10 @@ class VoVNet(nn.Module):
                 self.add_module(name, OSAModule(
                     ch, spec["stage_conv_ch"][i], spec["stage_out_ch"][i],
                     spec["layer_per_block"], identity=b > 0,
-                    depthwise=spec["dw"], norm=norm, dtype=dtype))
+                    depthwise=spec["dw"], with_dcn=bool(stage_with_dcn[i]),
+                    with_modulated_dcn=with_modulated_dcn,
+                    deformable_groups=deformable_groups, norm=norm,
+                    dtype=dtype))
                 ch = spec["stage_out_ch"][i]
                 names.append(name)
             self.blocks.append(names)

@@ -3,7 +3,10 @@ shared cls/bbox towers of conv3x3 -> GN -> relu (no norm unless the norm
 is "GN", as in the JAX head), 3x3 predictors for
 class logits (prior-prob bias), box regression (per-level Scale, then
 relu, reference fcos.py:237-238) and centerness. Tower weights are
-shared across FPN levels.
+shared across FPN levels. With ``use_deformable`` (MODEL.FCOS.
+USE_DEFORMABLE) the share and bbox towers' convs are deformable
+(``DeformConvBlock`` with a bias, no norm or relu of its own, then the
+tower's GN and relu); the cls tower stays regular, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,20 +18,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, GroupNorm, Scale
+from ...layers import Conv2d, DeformConvBlock, GroupNorm, Scale
 
 
 class Tower(nn.Module):
     """num_convs x [conv3x3(bias) -> GN -> relu]; GroupNorm only when
-    ``norm`` is "GN", any other value meaning none (JAX ``head.py:47``)."""
+    ``norm`` is "GN", any other value meaning none (JAX ``head.py:47``);
+    deformable convs with ``use_deformable`` (JAX ``head.py:30-47``)."""
 
     def __init__(self, num_convs: int, channels: int, norm: str = "GN",
+                 use_deformable: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_convs = num_convs
         for i in range(num_convs):
-            self.add_module(f"conv{i}", Conv2d(channels, channels, init=0.01,
-                                               dtype=dtype))
+            self.add_module(f"conv{i}", DeformConvBlock(
+                channels, channels, norm="", use_act=False, use_bias=True,
+                dtype=dtype) if use_deformable else
+                Conv2d(channels, channels, init=0.01, dtype=dtype))
             if norm == "GN":
                 self.add_module(f"norm{i}", GroupNorm(channels, 32))
 
@@ -50,13 +57,11 @@ class FCOSHead(nn.Module):
                  prior_prob: float = 0.01, use_deformable: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_deformable:
-            raise NotImplementedError(
-                "deformable FCOS towers are not ported yet (ROADMAP queue "
-                "1, 'Deformable conv, keypoints, adaptive ROIAlign')")
-        self.share_tower = Tower(num_share_convs, in_channels, norm, dtype)
-        self.cls_tower = Tower(num_cls_convs, in_channels, norm, dtype)
-        self.bbox_tower = Tower(num_box_convs, in_channels, norm, dtype)
+        self.share_tower = Tower(num_share_convs, in_channels, norm,
+                                 use_deformable, dtype)
+        self.cls_tower = Tower(num_cls_convs, in_channels, norm, dtype=dtype)
+        self.bbox_tower = Tower(num_box_convs, in_channels, norm,
+                                use_deformable, dtype)
         bias_value = -math.log((1 - prior_prob) / prior_prob)
         self.cls_logits = Conv2d(in_channels, num_classes, init=0.01,
                                  bias_value=bias_value, dtype=dtype)

@@ -20,12 +20,16 @@ inputs are the f32 canvas (or its s2d layout) and a ``GroundTruth``.
 
 The backbone is a VoVNet (standard or depthwise body), a ResNet or a
 MobileNetV2, resolved from the config as the JAX ``build_centermask``
-does; the s2d stem input applies to the VoVNet only. Not ported yet,
-each raising ``NotImplementedError``, under these items of ROADMAP
-queue 1: keypoints and DCN ('Deformable conv, keypoints, adaptive
-ROIAlign'), BN and SyncBN ('Data parallelism') and
+does; the s2d stem input applies to the VoVNet only. With
+MODEL.KEYPOINT_ON the ROI heads carry the keypoint head: ``inference``
+adds ``pred_keypoints`` and ``loss`` adds ``loss_keypoint``. The
+deformable convs (MODEL.VOVNET.STAGE_WITH_DCN, MODEL.FCOS.USE_DEFORMABLE)
+and the adaptive ROIAlign buckets (TPU.POOLER_SAMPLING_RATIO 0) are
+ported. Not ported yet, each raising ``NotImplementedError``, under
+these items of ROADMAP queue 1: BN and SyncBN ('Data parallelism') and
 ``TPU.REMAT_BACKBONE`` ('Leftovers of done items'). ``TPU.APPROX_TOPK``
-has no port: it selects the TPU's approximate top-k.
+has no port: it selects the TPU's approximate top-k. More than one
+deformable group is refused: the JAX reference cannot run it.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ from .backbones import (FPN, MOBILENET_FEATURE_CHANNELS,
 from .backbones.vovnet import FEATURE_STRIDES
 from .fcos import (FCOSHead, assign_targets_single_image, compute_locations,
                    decode_batch, fcos_losses, level_metadata)
-from .roi import CenterROIHeads, label_and_sample_proposals, mask_iou_loss
+from .roi import (CenterROIHeads, keypoint_rcnn_inference,
+                  keypoint_rcnn_loss, keypoints_to_heatmap,
+                  label_and_sample_proposals, mask_iou_loss)
 
 
 class InferenceOutputs(NamedTuple):
@@ -67,6 +73,8 @@ class InferenceOutputs(NamedTuple):
     pred_masks: torch.Tensor  # (B, K, 1, 2M, 2M)
     scores: torch.Tensor  # (B, K)
     valid: torch.Tensor  # (B, K) bool
+    # (B, K, 17, 3) x, y, prob with the keypoint head, else None
+    pred_keypoints: Optional[torch.Tensor] = None
 
 
 class GroundTruth(NamedTuple):
@@ -77,6 +85,7 @@ class GroundTruth(NamedTuple):
     classes: torch.Tensor  # (B, G) int
     valid: torch.Tensor  # (B, G) bool
     mask_patches: torch.Tensor  # (B, G, P, P) float {0,1} over each gt box
+    keypoints: Optional[torch.Tensor] = None  # (B, G, 17, 3) x, y, vis
     image_sizes: Optional[torch.Tensor] = None  # (B, 2) true (h, w)
 
 
@@ -144,6 +153,15 @@ class CenterMask(nn.Module):
         mask_num_conv: int = 4,
         maskiou_conv_dim: int = 256,
         maskiou_num_conv: int = 4,
+        keypoint_on: bool = False,
+        num_keypoints: int = 17,
+        keypoint_conv_dims: Sequence[int] = (512,) * 8,
+        keypoint_loss_weight: float = 1.0,
+        keypoint_normalize_by_visible: bool = True,
+        use_deformable: bool = False,
+        stage_with_dcn: Sequence[bool] = (False,) * 4,
+        with_modulated_dcn: bool = False,
+        deformable_groups: int = 1,
         batch_size_per_image: int = 512,
         positive_fraction: float = 0.25,
         max_fg_proposals: int = 128,
@@ -168,6 +186,10 @@ class CenterMask(nn.Module):
         self.roi_in_features = tuple(roi_in_features)
         self.mask_on = mask_on
         self.maskiou_on = maskiou_on
+        self.keypoint_on = keypoint_on
+        self.num_keypoints = num_keypoints
+        self.keypoint_loss_weight = keypoint_loss_weight
+        self.keypoint_normalize_by_visible = keypoint_normalize_by_visible
         self.pooler_resolution = pooler_resolution
         self.num_classes = num_classes
         self.decode_kwargs = dict(
@@ -219,7 +241,10 @@ class CenterMask(nn.Module):
         else:
             self.backbone = VoVNet(
                 conv_body, out_features=self.fpn_in_features,
-                norm=backbone_norm, s2d_input=s2d_input, dtype=dtype)
+                norm=backbone_norm, s2d_input=s2d_input,
+                stage_with_dcn=stage_with_dcn,
+                with_modulated_dcn=with_modulated_dcn,
+                deformable_groups=deformable_groups, dtype=dtype)
             chans, strides = feature_channels(conv_body), FEATURE_STRIDES
         self.fpn = FPN([chans[f] for f in self.fpn_in_features],
                        [strides[f] for f in self.fpn_in_features],
@@ -228,13 +253,13 @@ class CenterMask(nn.Module):
         self.fcos_head = FCOSHead(
             num_classes, fpn_out_channels, num_cls_convs, num_box_convs,
             num_share_convs, fcos_norm, len(self.fcos_in_features),
-            use_scale, prior_prob, dtype=dtype)
+            use_scale, prior_prob, use_deformable, dtype=dtype)
         self.roi_heads = CenterROIHeads(
             fpn_out_channels, num_classes, roi_in_strides, mask_on,
             maskiou_on, assign_criterion, pooler_resolution,
             pooler_sampling_ratio, mask_conv_dim, mask_num_conv, mask_norm,
             cls_agnostic_mask, maskiou_conv_dim, maskiou_num_conv,
-            dtype=dtype)
+            keypoint_on, num_keypoints, keypoint_conv_dims, dtype=dtype)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images: (B, H, W, 3) normalized and padded (BGR - mean), or its
@@ -373,10 +398,11 @@ class CenterMask(nn.Module):
             img_areas = (image_sizes[:, 0] * image_sizes[:, 1]).float() \
                 .repeat_interleave(K)
 
+        roi_features = [feats[f] for f in self.roi_in_features]
         if self.mask_on:
             roi_out = self.roi_heads(
-                [feats[f] for f in self.roi_in_features], flat_boxes,
-                flat_classes, flat_valid, batch_idx, img_areas, flat_scores)
+                roi_features, flat_boxes, flat_classes, flat_valid,
+                batch_idx, img_areas, flat_scores)
             masks = roi_out["pred_masks"]
             m = masks.shape[-1]
             pred_masks = masks.reshape(B, K, 1, m, m)
@@ -386,6 +412,13 @@ class CenterMask(nn.Module):
             pred_masks = torch.zeros((B, K, 1, m, m), dtype=torch.float32,
                                      device=images.device)
             mask_scores = proposals.scores
+
+        pred_keypoints = None
+        if self.keypoint_on:  # JAX meta.py:378-386
+            kp_logits = self.roi_heads.keypoint_forward(
+                roi_features, flat_boxes, batch_idx, img_areas)
+            pred_keypoints = keypoint_rcnn_inference(
+                kp_logits, flat_boxes).reshape(B, K, -1, 3)
 
         boxes_out = torch.where(proposals.valid[..., None],
                                 proposals.pred_boxes,
@@ -398,6 +431,7 @@ class CenterMask(nn.Module):
             pred_masks=pred_masks,
             scores=proposals.scores,
             valid=proposals.valid,
+            pred_keypoints=pred_keypoints,
         )
 
     @torch.no_grad()
@@ -414,10 +448,17 @@ class CenterMask(nn.Module):
         outs = [self.inference(images[i:i + 1], part(image_sizes, i),
                                part(valid_hw, i))
                 for i in range(images.shape[0])]
-        return InferenceOutputs(*(torch.cat(f) for f in zip(*outs)))
+        return InferenceOutputs(*(None if f[0] is None else torch.cat(f)
+                                  for f in zip(*outs)))
 
 
     # ------------------------------------------------------------------
+    @property
+    def roi_training(self) -> bool:
+        """Whether ``loss`` trains an ROI branch (mask or keypoint), which
+        samples proposals (JAX ``meta.py:476``)."""
+        return self.mask_on or self.keypoint_on
+
     def draws_shape(self, gt: GroundTruth) -> Tuple[int, int]:
         """(B, K + G) of the proposal sampler's uniforms: K post-NMS train
         proposals (the decode pads to K) and the G gt slots appended with
@@ -430,8 +471,9 @@ class CenterMask(nn.Module):
              draws: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        """Training losses (FCOS + mask + MaskIoU), f32 scalars on the
-        device, with no host sync (JAX ``meta.py:437-629``).
+        """Training losses (FCOS + mask + MaskIoU, and keypoints with
+        ``keypoint_on`` and ``gt.keypoints``), f32 scalars on the device,
+        with no host sync (JAX ``meta.py:437-629``).
 
         ``images``: the f32 normalized canvas (B, H, W, 3), or its s2d
         layout with ``s2d_input``. ``draws``: the proposal sampler's
@@ -465,7 +507,7 @@ class CenterMask(nn.Module):
             flat(logits, self.num_classes), flat(reg, 4), flat(ctr, 1)[:, 0],
             self.num_classes, self.focal_alpha, self.focal_gamma,
             self.loc_loss_type)
-        if not self.mask_on:
+        if not self.roi_training:
             return losses
 
         # ---- proposals for ROI training, detached (the reference labels
@@ -505,9 +547,48 @@ class CenterMask(nn.Module):
         else:
             img_areas = torch.full((R,), float(H * W), device=dev)
 
+        roi_features = [feats[f] for f in self.roi_in_features]
+        if self.mask_on:
+            self._mask_losses(losses, gt, roi_features, flat_fg_boxes,
+                              flat_fg_valid, flat_fg_classes, fg_gt_idx,
+                              batch_idx, img_areas)
+        if self.keypoint_on and gt.keypoints is not None:
+            # JAX meta.py:603-629: the foreground's gt keypoints by
+            # fg_gt_idx, normalized by the visible keypoints or by
+            # B * K * BATCH_SIZE_PER_IMAGE * POSITIVE_FRACTION
+            K = gt.keypoints.shape[2]
+            G = gt.keypoints.shape[1]
+            kp_of_fg = torch.gather(
+                gt.keypoints.float(), 1,
+                torch.clamp(fg_gt_idx, 0, G - 1).long()[..., None, None]
+                .expand(-1, -1, K, 3)).reshape(R, K, 3)
+            kp_logits = self.roi_heads.keypoint_forward(
+                roi_features, flat_fg_boxes, batch_idx, img_areas)
+            heat_idx, kp_valid = keypoints_to_heatmap(
+                kp_of_fg, flat_fg_boxes, kp_logits.shape[-1])
+            kp_valid = kp_valid & flat_fg_valid[:, None]
+            normalizer = None
+            if not self.keypoint_normalize_by_visible:
+                normalizer = float(B * self.num_keypoints
+                                   * self.batch_size_per_image
+                                   * self.positive_fraction)
+            losses["loss_keypoint"] = self.keypoint_loss_weight * \
+                keypoint_rcnn_loss(kp_logits, heat_idx, kp_valid, normalizer)
+        return losses
+
+    def _mask_losses(self, losses: Dict[str, torch.Tensor], gt: GroundTruth,
+                     roi_features, flat_fg_boxes: torch.Tensor,
+                     flat_fg_valid: torch.Tensor,
+                     flat_fg_classes: torch.Tensor, fg_gt_idx: torch.Tensor,
+                     batch_idx: torch.Tensor,
+                     img_areas: torch.Tensor) -> None:
+        """The mask and MaskIoU losses on the foreground proposals, into
+        ``losses`` (JAX ``meta.py:528-601``)."""
+        B = fg_gt_idx.shape[0]
+        R = flat_fg_boxes.shape[0]
+        dev = flat_fg_boxes.device
         pooled, mask_logits = self.roi_heads.mask_forward_train(
-            [feats[f] for f in self.roi_in_features], flat_fg_boxes,
-            batch_idx, img_areas)
+            roi_features, flat_fg_boxes, batch_idx, img_areas)
 
         # ---- mask targets from the rasterized gt patches
         G = gt.mask_patches.shape[1]
@@ -552,7 +633,6 @@ class CenterMask(nn.Module):
             losses["loss_maskiou"] = mask_iou_loss(
                 flat_fg_classes, pred_maskiou.float(), maskiou_targets,
                 flat_fg_valid, self.maskiou_loss_weight)
-        return losses
 
 
 def _resample_matrix(coords: torch.Tensor, size: int, s: int) -> torch.Tensor:
@@ -639,14 +719,6 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
     model (no layer behaves differently in train mode)."""
     dev = resolve_device(device)
     kind = backbone_type(cfg)
-    if cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError(
-            "keypoints are not ported yet (ROADMAP queue 1, "
-            "'Deformable conv, keypoints, adaptive ROIAlign')")
-    if cfg.MODEL.FCOS.USE_DEFORMABLE or any(cfg.MODEL.VOVNET.STAGE_WITH_DCN):
-        raise NotImplementedError(
-            "deformable convs are not ported yet (ROADMAP queue 1, "
-            "'Deformable conv, keypoints, adaptive ROIAlign')")
     if cfg.TPU.APPROX_TOPK:
         raise NotImplementedError(
             "TPU.APPROX_TOPK selects the TPU's approximate top-k, which has "
@@ -718,6 +790,16 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
         maskiou_conv_dim=cfg.MODEL.ROI_MASKIOU_HEAD.CONV_DIM,
         maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV,
+        keypoint_on=cfg.MODEL.KEYPOINT_ON,
+        num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
+        keypoint_conv_dims=tuple(cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS),
+        keypoint_loss_weight=cfg.MODEL.ROI_KEYPOINT_HEAD.LOSS_WEIGHT,
+        keypoint_normalize_by_visible=(
+            cfg.MODEL.ROI_KEYPOINT_HEAD.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS),
+        use_deformable=cfg.MODEL.FCOS.USE_DEFORMABLE,
+        stage_with_dcn=tuple(cfg.MODEL.VOVNET.STAGE_WITH_DCN),
+        with_modulated_dcn=cfg.MODEL.VOVNET.WITH_MODULATED_DCN,
+        deformable_groups=cfg.MODEL.VOVNET.DEFORMABLE_GROUPS,
         batch_size_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
         positive_fraction=cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION,
         max_fg_proposals=cfg.TPU.MAX_FG_PROPOSALS,

@@ -3,6 +3,10 @@
 - Inference (reference center_heads.py:413-444): assign each ROI its FPN
   level by area ratio, pool it with the multilevel ROIAlign, run the
   SAG-Mask head, select each ROI's class mask, and rescore with MaskIoU.
+  The keypoint head (``keypoint_forward``) pools with the same pooler:
+  ROI_HEADS.IN_FEATURES (p3-p5), POOLER_RESOLUTION and
+  TPU.POOLER_SAMPLING_RATIO, as the JAX heads do; detectron2 would take
+  ROI_KEYPOINT_HEAD.IN_FEATURES (p2-p5), but the FPN here has no p2.
 - Training (reference center_heads.py:173-260): append the gt boxes to
   the proposals, match them by IoU (detectron2 Matcher, no low-quality
   matches) and subsample ``batch_size_per_image`` rows at most
@@ -12,9 +16,7 @@
 
 All per-ROI tensors are padded buffers with validity masks; the images of
 a batch share one ROI axis (batch_indices select the image). Orders among
-equal keys are the JAX ones: stable sorts, first maxima. The keypoint
-branch is not ported yet (ROADMAP queue 1, 'Deformable conv,
-keypoints, adaptive ROIAlign').
+equal keys are the JAX ones: stable sorts, first maxima.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 from ...ops import (assign_boxes_by_area, assign_boxes_by_ratio,
                     multilevel_roi_align)
 from ...structures import boxes as box_ops
+from .keypoint_head import KRCNNConvDeconvUpsampleHead
 from .mask_head import SpatialAttentionMaskHead, mask_rcnn_inference
 from .maskiou_head import MaskIoUHead, mask_iou_inference
 
@@ -155,16 +158,14 @@ class CenterROIHeads(nn.Module):
                  mask_num_conv: int = 4, mask_norm: str = "",
                  cls_agnostic_mask: bool = False,
                  maskiou_conv_dims: int = 256, maskiou_num_conv: int = 4,
+                 keypoint_on: bool = False, num_keypoints: int = 17,
+                 keypoint_conv_dims: Sequence[int] = (512,) * 8,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if sampling_ratio == 0:
-            raise NotImplementedError(
-                "TPU.POOLER_SAMPLING_RATIO=0 (adaptive buckets) is not "
-                "ported yet (ROADMAP queue 1, "
-                "'Deformable conv, keypoints, adaptive ROIAlign')")
         self.in_strides = tuple(in_strides)
         self.mask_on = mask_on
         self.maskiou_on = maskiou_on
+        self.keypoint_on = keypoint_on
         self.assign_criterion = assign_criterion
         self.pooler_resolution = pooler_resolution
         self.sampling_ratio = sampling_ratio
@@ -176,6 +177,9 @@ class CenterROIHeads(nn.Module):
             self.maskiou_head = MaskIoUHead(
                 in_channels, num_classes, maskiou_conv_dims,
                 maskiou_num_conv, pooler_resolution, dtype=dtype)
+        if keypoint_on:
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(
+                in_channels, num_keypoints, keypoint_conv_dims, dtype=dtype)
 
     def _assign_levels(self, flat_boxes: torch.Tensor,
                        img_areas: torch.Tensor) -> torch.Tensor:
@@ -232,3 +236,12 @@ class CenterROIHeads(nn.Module):
     def maskiou_forward(self, pooled: torch.Tensor,
                         selected_mask: torch.Tensor) -> torch.Tensor:
         return self.maskiou_head(pooled, selected_mask)
+
+    def keypoint_forward(self, features: List[torch.Tensor],
+                         boxes: torch.Tensor, batch_indices: torch.Tensor,
+                         img_areas: torch.Tensor) -> torch.Tensor:
+        """Pool and keypoint head: (R, K, 56, 56) logits (JAX
+        ``heads.py:230-232``); the pool carries the ROIAlign gradient to
+        the features."""
+        return self.keypoint_head(
+            self.pool(features, boxes, batch_indices, img_areas))

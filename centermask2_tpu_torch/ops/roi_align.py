@@ -36,8 +36,14 @@ Both run through the registered operators ``cm2::roi_align`` and
 ``cm2::roi_align_backward`` (below), which dispatch by device and have
 fake implementations for ``torch.export``.
 
-Not ported here: ``sampling_ratio=0``'s adaptive buckets (ROADMAP queue
-1, 'Deformable conv, keypoints, adaptive ROIAlign').
+``sampling_ratio=0`` selects detectron2's adaptive sampling grid as the
+JAX package approximates it with static shapes (``roi_align.py:179,
+:224-241``): the ROIs are pooled at each ratio of
+``ADAPTIVE_SAMPLING_BUCKETS`` (1, 2, 4: three launches of kernel 2 on
+CUDA), and each ROI takes the pool of the smallest ratio not below
+ceil(max(h, w) * scale / o), 4 above that. The gradient goes back
+through the select into each pool, the other buckets' ROIs masked to
+zero (three launches of kernel 2b).
 """
 
 from __future__ import annotations
@@ -426,6 +432,32 @@ class _MultilevelRoiAlign(torch.autograd.Function):
         return (None,) * 7 + tuple(grads)
 
 
+ADAPTIVE_SAMPLING_BUCKETS = (1, 2, 4)
+
+
+def _adaptive_select(pools: List[torch.Tensor], boxes: torch.Tensor,
+                     levels: torch.Tensor, scales: Sequence[float],
+                     output_size: int) -> torch.Tensor:
+    """Each ROI's pool among ``pools`` (one a ratio of
+    ``ADAPTIVE_SAMPLING_BUCKETS``): the smallest ratio s with
+    ceil(max(roi_h, roi_w) * scale / o) <= s, the largest above that
+    (JAX ``roi_align.py:230-241``, the division by o a product with its
+    f32 reciprocal, as XLA evaluates it)."""
+    lv = torch.clamp(levels.long(), 0, len(scales) - 1)
+    scale_r = torch.full(lv.shape, float(scales[0]), device=boxes.device)
+    for i in range(1, len(scales)):
+        scale_r = scale_r.masked_fill(lv == i, float(scales[i]))
+    b = boxes.float()
+    inv_o = 1.0 / output_size
+    gh = torch.ceil((b[:, 3] - b[:, 1]) * scale_r * inv_o)
+    gw = torch.ceil((b[:, 2] - b[:, 0]) * scale_r * inv_o)
+    need = torch.maximum(gh, gw)[:, None, None, None]
+    out = pools[-1]
+    for s, pool in zip(ADAPTIVE_SAMPLING_BUCKETS[-2::-1], pools[-2::-1]):
+        out = torch.where(need <= s, pool, out)
+    return out
+
+
 def multilevel_roi_align(
     features: List[torch.Tensor],
     boxes: torch.Tensor,
@@ -439,11 +471,14 @@ def multilevel_roi_align(
     """Multilevel ROIAlign -> (R, C, o, o): kernels 2 and 2b on CUDA
     tensors, the plain versions on CPU tensors; differentiable in the
     features. Without a gradient to track (inference, export) it calls
-    the operator directly."""
+    the operator directly. ``sampling_ratio`` 0: the adaptive buckets
+    (the module docstring)."""
     if sampling_ratio == 0:
-        raise NotImplementedError(
-            "sampling_ratio=0 (adaptive buckets) is not ported yet (ROADMAP "
-            "queue 1, 'Deformable conv, keypoints, adaptive ROIAlign')")
+        pools = [multilevel_roi_align(features, boxes, batch_indices, levels,
+                                      scales, output_size, s, aligned)
+                 for s in ADAPTIVE_SAMPLING_BUCKETS]
+        return _adaptive_select(pools, boxes.detach(), levels, scales,
+                                output_size)
     if not (torch.is_grad_enabled()
             and any(f.requires_grad for f in features)):
         return _forward(list(features), boxes, batch_indices, levels, scales,

@@ -10,8 +10,9 @@ counterpart of the repository's ``tools/infer.py``).
 Runs the model over a COCO-format dataset through
 ``evaluation/loop.py::evaluate_dataset`` (host resize and pack, device
 inference, host rescale and mask paste, mask-score-aware COCO
-evaluation), writes ``coco_instances_results.json`` and ``metrics.json``
-to the output directory and prints the metric tables. The model runs on
+evaluation; with MODEL.KEYPOINT_ON also the keypoints (OKS) task, with
+TEST.KEYPOINT_OKS_SIGMAS), writes ``coco_instances_results.json`` and
+``metrics.json`` to the output directory and prints the metric tables. The model runs on
 the GPU unless ``--device cpu`` asks for the CPU; on the GPU each
 canvas's requests replay one captured CUDA graph (the loop's default,
 ``export/captured.py``). Without ``--weights``
@@ -36,7 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="requests in flight (the pipeline depth, at least 2)")
     p.add_argument("--output-dir", default="output/infer")
-    p.add_argument("--tasks", default="bbox,segm")
+    p.add_argument("--tasks", default=None,
+                   help="comma-separated COCO tasks; default bbox,segm, and "
+                        "keypoints (OKS) with MODEL.KEYPOINT_ON")
     p.add_argument("--tight-compute", action="store_true",
                    help="run each request at its quantized tight canvas "
                         "(s2d models; at most 4 canvases) instead of "
@@ -63,7 +66,8 @@ def load_weights(model, cfg, path: str) -> None:
         num_share_convs=cfg.MODEL.FCOS.NUM_SHARE_CONVS,
         num_levels=len(cfg.MODEL.FCOS.IN_FEATURES),
         mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
-        maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV)
+        maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV,
+        keypoint_num_conv=len(cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS))
     if report["unused_torch_keys"]:
         print(f"[warn] {len(report['unused_torch_keys'])} checkpoint keys "
               f"unused, e.g. {report['unused_torch_keys'][:5]}")
@@ -113,13 +117,16 @@ def main(argv=None) -> None:
     if args.weights:
         load_weights(model, cfg, args.weights)
 
+    tasks = args.tasks or "bbox,segm" + (
+        ",keypoints" if cfg.MODEL.KEYPOINT_ON else "")
     results, avg_ms, evaluator = evaluate_dataset(
         model, ann=args.ann, image_root=args.image_root,
         fixed_size=cfg.TPU.FIXED_EDGE_SIZE, min_size=cfg.INPUT.MIN_SIZE_TEST,
         max_size=cfg.INPUT.MAX_SIZE_TEST,
-        tasks=tuple(args.tasks.split(",")), limit=args.limit,
+        tasks=tuple(tasks.split(",")), limit=args.limit,
         pipeline_depth=max(2, args.batch_size),
-        tight_compute=args.tight_compute)
+        tight_compute=args.tight_compute,
+        kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
     finish(args, results, evaluator, avg_ms)
 
 

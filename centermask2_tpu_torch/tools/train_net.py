@@ -64,7 +64,8 @@ def main(argv=None) -> None:
                                        restore_train_state, save_checkpoint,
                                        train_state)
     from ..config import get_cfg
-    from ..data.coco import CocoDataset, train_batches
+    from ..data.coco import (CocoDataset, filter_images_with_few_keypoints,
+                             train_batches)
     from ..data.prefetch import prefetch
     from ..models.meta import build_centermask
     from ..train import make_optimizer_from_cfg, make_train_step, train_loop
@@ -96,6 +97,12 @@ def main(argv=None) -> None:
 
     ds = CocoDataset(args.ann, args.image_root,
                      filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+    if cfg.MODEL.KEYPOINT_ON:
+        min_kp = cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE
+        dropped = filter_images_with_few_keypoints(ds, min_kp)
+        if dropped:
+            print(f"dropped {dropped} images with < {min_kp} visible "
+                  "keypoints")
     fixed = cfg.TPU.FIXED_EDGE_SIZE
     batch_size = cfg.SOLVER.IMS_PER_BATCH
     print(f"{len(ds)} training images, batch {batch_size} on {dev}")
@@ -107,7 +114,8 @@ def main(argv=None) -> None:
         random_flip=cfg.INPUT.RANDOM_FLIP,
         sampling=cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING,
         workers=cfg.DATALOADER.NUM_WORKERS,
-        tight_pad=cfg.TPU.TRAIN_TIGHT_PAD), depth=2)
+        tight_pad=cfg.TPU.TRAIN_TIGHT_PAD,
+        with_keypoints=cfg.MODEL.KEYPOINT_ON), depth=2)
 
     eval_period = cfg.TEST.EVAL_PERIOD if args.val_ann else 0
     if eval_period > 0:

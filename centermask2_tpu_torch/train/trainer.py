@@ -14,7 +14,8 @@ the graph, and every call replays it. The tensors of the capturing call
 call with other tensors copies them in, and without uniforms of its own
 draws them in place with ``torch.rand(..., generator=, out=)``, the
 same draw in the same order as the eager step's, so the random stream
-is the same. ``train_loop`` passes the same device buffers every step,
+is the same. Every field of the ``GroundTruth`` that is not None (a
+keypoint model's ``keypoints`` among them) is a graph input. ``train_loop`` passes the same device buffers every step,
 so nothing is copied twice. The model's parameters, the momentum
 buffers and the schedule's count are updated in place by every replay;
 ``restore_train_state`` writes a checkpoint into those same tensors, so
@@ -65,9 +66,9 @@ def _step_body(model: CenterMask, optimizer, scheduler):
 def _draws(model: CenterMask, gt: GroundTruth,
            generator: Optional[torch.Generator],
            out: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
-    """The sampler's uniforms of one step (None without the mask branch,
-    which draws none)."""
-    if not model.mask_on:
+    """The sampler's uniforms of one step (None without an ROI branch,
+    mask or keypoint, which draws none)."""
+    if not model.roi_training:
         return None
     shape = model.draws_shape(gt)
     if out is not None:
@@ -212,12 +213,15 @@ def batch_to_device(batch: Dict[str, np.ndarray], dev: torch.device,
               "gt_valid": batch["gt_valid"],
               "gt_mask_patches": batch["gt_mask_patches"],
               "image_size": batch["image_size"].astype(np.float32)}
+    if "gt_keypoints" in batch:
+        arrays["gt_keypoints"] = batch["gt_keypoints"]
     if buffers is not None:
         t = buffers(arrays)
     else:
         t = {k: _to_device(a, dev) for k, a in arrays.items()}
     gt = GroundTruth(boxes=t["gt_boxes"], classes=t["gt_classes"],
                      valid=t["gt_valid"], mask_patches=t["gt_mask_patches"],
+                     keypoints=t.get("gt_keypoints"),
                      image_sizes=t["image_size"])
     return t["image"], gt
 

@@ -8,7 +8,9 @@ It builds the port's CUDA kernels from ``centermask2_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 V-39-eSE flagship (random weights from a seed) through the kernels, and
 times the kernels and the end-to-end latency; then it serves and trains
-the other backbone families. Phases, in order:
+the other backbone families and the person-keypoint model, and serves
+the flagship with the adaptive ROIAlign buckets and with deformable
+convs. Phases, in order:
 
 1. card:    the card's name and power limit (nvidia-smi).
 2. build:   nvcc of every kernel, in parallel; build seconds, and each
@@ -19,11 +21,12 @@ the other backbone families. Phases, in order:
             8192 on disjoint boxes (all kept), a suppression chain across
             every 64-box word, and an all-invalid image; ROIAlign on the
             P3-P5 shapes of 800x1088 within tolerance in f32 and bf16 for
-            (o, s) = (14, 2), (7, 2), (14, 1), (5, 3), C = 256 and 200,
-            one image and a batch of 2, and ROIs all on P5 (a difference
-            names its worst element); median times of kernel and plain
-            version on synthetic inputs (NMS also at N = 2048 and 8192
-            with B = 2; ROIAlign also on one tiny box repeated).
+            (o, s) = (14, 2), (7, 2), (14, 1), (5, 3), (14, 4), C = 256
+            and 200, one image and a batch of 2, and ROIs all on P5 (a
+            difference names its worst element); median times of kernel
+            and plain version on synthetic inputs (NMS also at N = 2048
+            and 8192 with B = 2; ROIAlign also on one tiny box repeated,
+            and at s = 4).
 4. serve:   4 requests (3 at 800x1088, 1 at 1344x1344) in bf16 through
             ``build_centermask`` + ``inference``, with the launch counts
             reset before and read after (each kernel once per request),
@@ -97,7 +100,8 @@ the other backbone families. Phases, in order:
             from an eager bf16 and f32 step; kernel 2b also on synthetic
             P3-P5 inputs (R = 0, ROIs outside the image, stacked tiny
             boxes, ROIs all on P5, C = 200, (o, s) = (7, 2), (14, 1), (5,
-            3)), each time launched twice with bit-equal results and its
+            3), (14, 4)), each time launched twice with bit-equal results
+            and its
             prepass table equal to the CPU oracle's; the f32 step (TF32
             off, deterministic cuDNN) through the kernels against the same
             step through the plain versions: losses equal, every gradient
@@ -126,11 +130,32 @@ the other backbone families. Phases, in order:
             ``[backbones]`` line per model and canvas: captured ms and
             quartiles, device ms, idle share, eager ms, graph pool,
             parameters.
-12. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+12. keypoints: ``centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml`` from a
+            Python copy (``keypoint_cfg``), full width, bf16: requests at
+            800x1088 and 1344x1344 eagerly and through
+            ``CapturedInference`` (launches, the replay equal to the
+            eager request slot by slot, ``pred_keypoints`` included,
+            kernels 1 and 2 against their plain versions on the request's
+            inputs, 4 s captured and eager windows); the eval entry
+            point over 8 synthetic person-keypoint images, captured and
+            eager, equal predictions, the OKS task, and the ground truth
+            fed back at AP 100; training captured then eager (launches,
+            finite ``loss_keypoint``, ms a step, images/s, peak memory, a
+            step's device time) and one f32 step through the kernels
+            against the plain versions; the flagship with
+            TPU.POOLER_SAMPLING_RATIO 0: a request eager and captured
+            (three launches of kernel 2, s = 1, 2 and 4, each held
+            against its plain version; kernel 2 at s = 4 timed) and one
+            f32 step (three launches of kernels 2 and 2b, each held;
+            kernel 2b at s = 4 timed); the flagship with modulated DCN in
+            stages 4-5 and the deformable FCOS towers: a request eager
+            and captured, the replay equal to eager, 2 s windows.
+13. result: a ``{"kernels": [...]}`` line whose launches sum the counts
             of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
-            ``train`` and ``backbones`` (the launch functions' counts:
-            eager launches and captures, not replays), then the last line
-            ``{"ok": true, "device": {...}}``.
+            ``train``, ``backbones`` and ``keypoints`` (the launch
+            functions' counts: eager launches and captures, not
+            replays), then the last line ``{"ok": true, "device":
+            {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -173,6 +198,9 @@ ROI_BF16_RTOL = 2.0 ** -7  # both sides round an f32 sum to bf16: <= 1 ulp
 ROI_BF16_ATOL = 1e-6
 E2E_TOL = {"scores": (1e-6, 1e-5), "pred_boxes": (1e-6, 1e-4),
            "pred_masks": (0.0, 1e-4), "mask_scores": (1e-3, 1e-4)}
+# a keypoint model's (x, y, prob) of the same request replayed and eager:
+# the same kernels on the same inputs, so within the scores' tolerance
+KEYPOINT_TOL = (1e-6, 1e-4)
 # kernel 2b against the plain VJP: both sum in f32, each in its own fixed
 # order (the kernel pixel by pixel over the ROIs, the plain version in
 # einsum order), so f32 is held to 1e-5 of the largest plain value and
@@ -181,6 +209,13 @@ ROI_BWD_REL = 1e-5
 # the f32 train step through the kernels against the plain versions:
 # every gradient within this factor of its noise floor
 GRAD_NOISE_FACTOR = 4.0
+# gradients that are zero in exact arithmetic, so that both runs hold
+# rounding noise only: the keypoint deconv's bias adds a constant to each
+# map, which the bilinear upsample keeps constant and the softmax over the
+# map's cells cancels. They are held to be noise, at most ZERO_GRAD_REL of
+# the largest gradient of the same module, and not compared
+ZERO_GRADS = ("roi_heads.keypoint_head.score_lowres.bias",)
+ZERO_GRAD_REL = 1e-4
 
 # end-to-end timing: each canvas and dtype gets a warm-up, then a timed
 # window of at least WINDOW_S seconds and MIN_TIMED requests; the sweep
@@ -295,6 +330,39 @@ def serving_cfg():
     s2d stem input (the raw uint8 s2d pack, normalized on the device)."""
     cfg = flagship_cfg()
     cfg.TPU.S2D_STEM_INPUT = True
+    return cfg
+
+
+KEYPOINT_YAML = "centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml"
+
+
+def keypoint_cfg():
+    """``configs/centermask/centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml``:
+    the Base VoVNet config (V-39-eSE) for people, with the KRCNN keypoint
+    head and neither mask nor MaskIoU head."""
+    cfg = base_cfg()
+    cfg.MODEL.KEYPOINT_ON = True
+    cfg.MODEL.MASK_ON = False
+    cfg.MODEL.MASKIOU_ON = False
+    cfg.MODEL.FCOS.NUM_CLASSES = 1
+    return cfg
+
+
+def adaptive_cfg():
+    """The flagship with TPU.POOLER_SAMPLING_RATIO 0: the adaptive ROIAlign
+    buckets (s = 1, 2 and 4)."""
+    cfg = flagship_cfg()
+    cfg.TPU.POOLER_SAMPLING_RATIO = 0
+    return cfg
+
+
+def dcn_cfg():
+    """The flagship with modulated deformable convs in VoVNet stages 4 and
+    5 and the deformable FCOS towers."""
+    cfg = flagship_cfg()
+    cfg.MODEL.VOVNET.STAGE_WITH_DCN = (False, False, True, True)
+    cfg.MODEL.VOVNET.WITH_MODULATED_DCN = True
+    cfg.MODEL.FCOS.USE_DEFORMABLE = True
     return cfg
 
 
@@ -696,10 +764,13 @@ def roi_case(feats, boxes, bidx, levels, scales, o: int, s: int,
 
 # (B, C, o, s, large) of the ROIAlign checks on P3-P5 of 800x1088: the
 # main path's (1, 256, 14, 2) first; odd o*o (7, 5) takes the bf16 scalar
-# stores, C = 200 a ragged channel group, ``large`` puts every ROI on P5
+# stores, C = 200 a ragged channel group, ``large`` puts every ROI on P5;
+# s = 4 is the largest adaptive bucket (o * s = 56 of the 64 samples an
+# axis the kernels' tables hold)
 ROI_CASES = ((1, 256, 14, 2, False), (2, 256, 14, 2, False),
              (2, 200, 7, 2, False), (2, 200, 14, 1, False),
-             (2, 256, 5, 3, False), (2, 256, 14, 2, True))
+             (2, 256, 5, 3, False), (2, 256, 14, 2, True),
+             (2, 256, 14, 4, False))
 
 
 def check_roi_align(dev) -> float:
@@ -723,6 +794,9 @@ def check_roi_align(dev) -> float:
         for feats in (feats32, [f.bfloat16() for f in feats32]):
             worst = max(worst, roi_case(feats, boxes, bidx, levels, scales,
                                         o, s, what))
+        if s == 4:  # the largest adaptive bucket
+            roi_row([f.bfloat16() for f in feats32], boxes, bidx, levels,
+                    scales, o, s, True, "synthetic boxes, s=4")
         if (B, C, o, s, large) == ROI_CASES[0]:  # the main path's shapes
             roi_row([f.bfloat16() for f in feats32], boxes, bidx, levels,
                     scales, o, s, True, "synthetic boxes")
@@ -769,6 +843,11 @@ def check_outputs(out, B: int, K: int, what: str) -> int:
             raise AssertionError(f"{what}: {f} shape {tuple(t.shape)} != {shp}")
         if t.is_floating_point() and not torch.isfinite(t).all():
             raise AssertionError(f"{what}: {f} has non-finite values")
+    if out.pred_keypoints is not None:
+        kp = out.pred_keypoints
+        if tuple(kp.shape) != (B, K, 17, 3) or not torch.isfinite(kp).all():
+            raise AssertionError(f"{what}: pred_keypoints {tuple(kp.shape)}, "
+                                 f"finite {bool(torch.isfinite(kp).all())}")
     if out.pred_classes.dtype != torch.int32:
         raise AssertionError(f"{what}: pred_classes {out.pred_classes.dtype}")
     n = int(out.valid.sum())
@@ -837,7 +916,10 @@ def compare_outputs(a, b, K: int, what: str) -> int:
     v = a.valid[0]
     if not torch.equal(a.pred_classes[0][v], b.pred_classes[0][v]):
         raise AssertionError(f"{what}: classes differ")
-    for f, (rtol, atol) in E2E_TOL.items():
+    tols = dict(E2E_TOL)
+    if a.pred_keypoints is not None or b.pred_keypoints is not None:
+        tols["pred_keypoints"] = KEYPOINT_TOL
+    for f, (rtol, atol) in tols.items():
         x, y = getattr(a, f)[0][v].double(), getattr(b, f)[0][v].double()
         err = float((x - y).abs().max())
         if not torch.allclose(x, y, rtol=rtol, atol=atol):
@@ -851,23 +933,34 @@ def compare_outputs(a, b, K: int, what: str) -> int:
 # ------------------------------------------------------------------ time
 def capture_kernel_inputs(request) -> dict:
     """The arguments the main path passes to each kernel in one request
-    (``request()``, which runs through the kernels as usual)."""
-    seen = {}
+    (``request()``, which runs through the kernels as usual), the last
+    launch of each: "nms" and "roi_align"."""
+    seen = record_launches(request)
+    if not all(seen.values()):
+        raise AssertionError(f"request reached only "
+                             f"{sorted(k for k, v in seen.items() if v)}")
+    return {"nms": seen["nms_keep_sorted"][-1],
+            "roi_align": seen["roi_align"][-1]}
+
+
+def record_launches(run, names=("nms_keep_sorted", "roi_align")) -> dict:
+    """The arguments of every launch of each kernel of ``names`` (``_kernels``
+    function names) in ``run()``, in order: name -> list of argument
+    tuples (``capture_kernel_inputs`` keeps the last of one request)."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    seen = {n: [] for n in names}
 
     def recorder(name, fn):
         def call(*args):
-            seen[name] = args
+            seen[name].append(args)
             return fn(*args)
         return call
 
-    from centermask2_tpu_torch.ops import _kernels
-
-    with kernels_swapped(recorder("nms", _kernels.nms_keep_sorted),
-                         recorder("roi_align", _kernels.roi_align)):
-        request()
+    with kernels_swapped(*(recorder(n, getattr(_kernels, n))
+                           if n in names else None for n in KERNEL_FNS)):
+        run()
     torch.cuda.synchronize()
-    if set(seen) != {"nms", "roi_align"}:
-        raise AssertionError(f"request reached only {sorted(seen)}")
     return seen
 
 
@@ -1033,12 +1126,13 @@ GRAPH_REPLAYS = 5  # replays profiled for their kernel launches
 GRAPH_CANVASES = ((100, 800, 1088), (103, 1344, 1344))
 
 
-def replay_launches(run, n: int, kernels, what: str) -> int:
-    """Each port kernel of ``kernels`` launched once per call in ``n``
-    calls of ``run()``, counted by the profiler (a graph's replay does not
-    pass through the launch functions, so their counts cannot see it).
-    Raises on another count; returns the calls verified, 0 when the
-    profiler records no device time (not measured)."""
+def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
+    """Each port kernel of ``kernels`` launched once per call (or
+    ``per_call[kernel]`` times) in ``n`` calls of ``run()``, counted by
+    the profiler (a graph's replay does not pass through the launch
+    functions, so their counts cannot see it). Raises on another count;
+    returns the calls verified, 0 when the profiler records no device
+    time (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1057,10 +1151,15 @@ def replay_launches(run, n: int, kernels, what: str) -> int:
         return 0
     got = {fn: sum(e.count for e in evs if fn in e.key)
            for k in kernels for fn in KERNEL_CUDA_FNS[k]}
-    if set(got.values()) != {n}:
-        raise AssertionError(f"{what}: {n} calls launched {got}")
+    want = {fn: n * (per_call or {}).get(k, 1)
+            for k in kernels for fn in KERNEL_CUDA_FNS[k]}
+    if got != want:
+        raise AssertionError(f"{what}: {n} calls launched {got}, {want} "
+                             "expected")
+    times = "once" if not per_call else ", ".join(
+        f"{k} {v}x" for k, v in per_call.items())
     log(f"  {what}: the profiler counts each CUDA kernel of "
-        f"{', '.join(kernels)} once per call over {n} calls ({got})")
+        f"{', '.join(kernels)} {times} per call over {n} calls ({got})")
     return n
 
 
@@ -1081,7 +1180,7 @@ def captured_window(prog, x_host, seconds: float) -> dict:
     host = []
 
     def request():
-        out = prog(x_host)
+        out = [t for t in prog(x_host) if t is not None]
         if not host:
             host.extend(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                         for t in out)
@@ -1122,16 +1221,19 @@ def captured_window(prog, x_host, seconds: float) -> dict:
 
 
 def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
-                   eager_ms=None, graphs=None, errs=None) -> dict:
+                   eager_ms=None, graphs=None, errs=None,
+                   roi_per_request: int = 1) -> dict:
     """``model`` (``name``) at each canvas of ``canvases`` ((seed, H, W)),
     eagerly and through one ``CapturedInference``. Gates: one launch of
-    kernels 1 and 2 an eager request, ``WARMUP_CALLS`` + 1 at a capture
-    (the side-stream warm-up and the capture) and none at a replay
-    (launch counts), one per replay (profiler); the replay against the
-    eager request slot by slot (``compare_outputs``; bit-equality and the
-    worst differences printed). With ``errs``, each kernel held against
-    its plain version on the eager request's inputs, the worst errors
-    into ``errs``. With ``window_s``, a captured window of that many
+    kernel 1 and ``roi_per_request`` of kernel 2 (3 with the adaptive
+    ROIAlign buckets) an eager request, ``WARMUP_CALLS`` + 1 times that
+    at a capture (the side-stream warm-up and the capture) and none at a
+    replay (launch counts), the same per replay (profiler); the replay
+    against the eager request slot by slot (``compare_outputs``, a
+    keypoint model's ``pred_keypoints`` included; bit-equality and the
+    worst differences printed). With ``errs``, each kernel launch held
+    against its plain version on the eager request's inputs, the worst
+    errors into ``errs``. With ``window_s``, a captured window of that many
     seconds at each canvas beside the eager median of ``eager_ms`` at
     (H, W), or of an eager window of ``window_s`` where it has none; one
     line a canvas with the graph pool and the parameter count. Returns
@@ -1157,39 +1259,54 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         what = f"{name} {short} {H}x{W}"
         outs = []
         _kernels.reset_launch_counts()
-        seen, peak = eager_peak(lambda: capture_kernel_inputs(
+        seen, peak = eager_peak(lambda: record_launches(
             lambda: outs.append(model.inference(img))))
         counts = [_kernels.launch_counts()]
         for _ in range(2):  # the warm-up and capture, then a replay
             _kernels.reset_launch_counts()
             got = prog(img)
             counts.append(_kernels.launch_counts())
-        want = [(n, n) for n in (1, WARMUP_CALLS + 1, 0)]
+        want = [(n, n * roi_per_request) for n in (1, WARMUP_CALLS + 1, 0)]
         if [(c["nms"], c["roi_align"]) for c in counts] != want:
             raise AssertionError(f"{what}: launches {counts} for an eager "
                                  "request, a capture and a replay")
         for c in counts:
             for k in launches:
                 launches[k] += c[k]
-        got = type(got)(*(t.clone() for t in got))
+        got = type(got)(*(None if t is None else t.clone() for t in got))
         n = compare_outputs(got, outs[0], K, f"{what} replay vs eager")
-        same = all(torch.equal(a, b) for a, b in zip(got, outs[0]))
+        pairs = [(a, b) for a, b in zip(got, outs[0]) if a is not None]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        fields = list(E2E_TOL) + (["pred_keypoints"]
+                                  if got.pred_keypoints is not None else [])
         worst = {f: float((getattr(got, f).double()
                            - getattr(outs[0], f).double()).abs().max())
-                 for f in E2E_TOL}
-        log(f"  {what}: {n} valid of {K}; kernels 1 and 2 launched once by "
-            f"the eager request, {WARMUP_CALLS + 1} times by the capture "
-            f"({WARMUP_CALLS} warm-up requests + the capture), not by a "
-            f"replay; the replay equals the eager request slot by slot, "
-            f"every output bit-equal {same}, worst abs differences "
+                 for f in fields}
+        w = WARMUP_CALLS + 1
+        how = (f"kernels 1 and 2 launched once by the eager request, {w} "
+               f"times by the capture" if roi_per_request == 1 else
+               f"kernel 1 launched once and kernel 2 {roi_per_request} "
+               f"times by the eager request, {w} and {w * roi_per_request} "
+               f"times by the capture")
+        log(f"  {what}: {n} valid of {K}; {how} ({WARMUP_CALLS} warm-up "
+            f"requests + the capture), not by a replay; the replay equals "
+            f"the eager request slot by slot, every output bit-equal "
+            f"{same}, worst abs differences "
             + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
             + f"; the eager request allocates at its peak "
             f"{peak / 2 ** 20:.1f} MiB above its start")
         if errs is not None:
-            check_captured(seen, f"{what} request", errs)
+            for args in seen["nms_keep_sorted"]:
+                errs["nms"] = max(errs["nms"],
+                                  nms_case(*args, f"{what} request"))
+            for args in seen["roi_align"]:
+                note = f", s={args[6]}" if roi_per_request > 1 else ""
+                errs["roi_align"] = max(errs["roi_align"], roi_case(
+                    *args[:7], f"{what} request{note}"))
         del seen
         replay_launches(lambda: prog(img), GRAPH_REPLAYS,
-                        ("nms", "roi_align"), f"{what} replays")
+                        ("nms", "roi_align"), f"{what} replays",
+                        per_call={"nms": 1, "roi_align": roi_per_request})
         if window_s:
             r = captured_window(prog, img.cpu().pin_memory(), window_s)
             eager = (eager_ms or {}).get((H, W))
@@ -1765,9 +1882,10 @@ def eval_runs(model, ann: str, modes, common: dict, n_images: int,
                f"eager, one launch of each kernel a request")
         n_prop = sum(len(p["boxes"]) for p in ev.proposals.values())
         log(f"  eval {mode}: {n_images} images, {len(ev.predictions)} "
-            f"predictions of the set's categories, {n_prop} proposals, bbox "
-            f"AP {res['bbox']['AP']:.4f}; {how}; avg {avg_ms:.3f} ms/img "
-            f"({card})")
+            f"predictions of the set's categories, {n_prop} proposals, "
+            + ", ".join(f"{t} AP {res[t]['AP']:.4f}" for t in
+                        ("bbox", "keypoints") if t in res)
+            + f"; {how}; avg {avg_ms:.3f} ms/img ({card})")
         if name is not None:
             prog = progs[name]
             pool = pool_bytes(r0) if cuda else 0
@@ -1951,7 +2069,8 @@ def export_phase(dev, s2d_model, nhwc_model, fixed: int = FIXED,
             want = model.inference(args[0], None,
                                    args[1] if len(args) > 1 else None, cv)
             n = compare_outputs(out, want, K, f"{what} artifact vs eager")
-            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            same = all(torch.equal(a, b) for a, b in zip(out, want)
+                       if a is not None)
             log(f"  {what}: input {shape} {str(dtype)[6:]}, exported in "
                 f"{export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB, "
                 f"loaded in {load_s:.2f} s; {flops / 1e9:.1f} GFLOP a call "
@@ -1989,12 +2108,17 @@ def _shape_patch(rng, p: int) -> np.ndarray:
 
 def make_train_batch(seed: int, batch: int, fixed: int, n_gt: int,
                      max_gt: int, patch: int = 112,
-                     sides=(16, 600)) -> dict:
+                     sides=(16, 600), keypoints: bool = False) -> dict:
     """A batch in ``data/coco.py::train_batches``' format from a seed, on
     (fixed, fixed) canvases: normalized-scale noise with each gt box
     painted in a texture, ``n_gt`` boxes of ``sides`` px (log-uniform) an
     image among ``max_gt`` slots, and 112x112 mask patches (rectangles,
-    triangles, ellipses), so the card needs no cv2 or PIL."""
+    triangles, ellipses), so the card needs no cv2 or PIL. With
+    ``keypoints``, a person-keypoint batch: every gt of class 0, and
+    "gt_keypoints" (B, max_gt, 17, 3) as ``with_keypoints`` gives them, 17
+    points inside each box, a fifth not labeled (zeroed), the others
+    visible (2) or not (1); drawn after the rest, so the other arrays are
+    those of the batch without keypoints."""
     rng = np.random.RandomState(seed)
     img = (rng.randn(batch, fixed, fixed, 3) * 0.3 - 1.0).astype(np.float32)
     boxes = np.zeros((batch, max_gt, 4), np.float32)
@@ -2018,9 +2142,21 @@ def make_train_batch(seed: int, batch: int, fixed: int, n_gt: int,
             ys, xs = int(y0), int(x0)
             img[b, ys:int(y0 + bh), xs:int(x0 + bw)] += \
                 np.float32(1.0 + classes[b, g] / 40.0)
-    return {"image": img, "gt_boxes": boxes, "gt_classes": classes,
-            "gt_valid": valid, "gt_mask_patches": patches,
-            "image_size": sizes}
+    out = {"image": img, "gt_boxes": boxes, "gt_classes": classes,
+           "gt_valid": valid, "gt_mask_patches": patches,
+           "image_size": sizes}
+    if keypoints:
+        kp = np.zeros((batch, max_gt, 17, 3), np.float32)
+        u = rng.rand(batch, max_gt, 17, 3)
+        kp[..., :2] = boxes[:, :, None, :2] + u[..., :2] * (
+            boxes[:, :, None, 2:] - boxes[:, :, None, :2])
+        kp[..., 2] = np.where(u[..., 2] < 0.2, 0, np.where(u[..., 2] < 0.6,
+                                                           1, 2))
+        kp[kp[..., 2] == 0] = 0
+        kp[~valid] = 0
+        out["gt_keypoints"] = kp
+        out["gt_classes"] = np.zeros_like(classes)
+    return out
 
 
 def build_trainer(cfg, dev, state=None, capture=None, graphs=None):
@@ -2045,35 +2181,28 @@ def build_trainer(cfg, dev, state=None, capture=None, graphs=None):
     return model, opt, sched, step
 
 
+# the losses of a step: FCOS with the mask branch or the keypoint head
+FCOS_LOSSES = {"loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr",
+               "total_loss"}
+LOSS_SETS = (FCOS_LOSSES | {"loss_mask", "loss_maskiou"},
+             FCOS_LOSSES | {"loss_keypoint"})
+
+
 def check_losses(metrics: dict, what: str) -> dict:
     m = {k: float(v) for k, v in metrics.items()}
-    want = {"loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr", "loss_mask",
-            "loss_maskiou", "total_loss"}
-    if set(m) != want or not all(np.isfinite(v) for v in m.values()):
+    if set(m) not in LOSS_SETS or not all(np.isfinite(v) for v in m.values()):
         raise AssertionError(f"{what}: losses {m}")
     return m
 
 
 def capture_step_inputs(run) -> dict:
-    """The arguments of each kernel's launch in one train step
+    """The arguments of each kernel's last launch in one train step
     (``run()``, which goes through the kernels as usual)."""
-    from centermask2_tpu_torch.ops import _kernels
-
-    seen = {}
-
-    def recorder(name, fn):
-        def call(*args):
-            seen[name] = args
-            return fn(*args)
-        return call
-
-    with kernels_swapped(*(recorder(n, getattr(_kernels, n))
-                           for n in KERNEL_FNS)):
-        run()
-    torch.cuda.synchronize()
-    if set(seen) != set(KERNEL_FNS):
-        raise AssertionError(f"the step reached only {sorted(seen)}")
-    return seen
+    seen = record_launches(run, KERNEL_FNS)
+    if not all(seen.values()):
+        raise AssertionError(f"the step reached only "
+                             f"{sorted(k for k, v in seen.items() if v)}")
+    return {k: v[-1] for k, v in seen.items()}
 
 
 def roi_bwd_case(args, what: str) -> float:
@@ -2137,11 +2266,13 @@ def roi_bwd_case(args, what: str) -> float:
 # "none" R = 0, "outside" every ROI outside the canvas, "stacked" 1.25 R + 1
 # copies of one 3x3 px box of one image (every ROI in one tile's list, in
 # two rounds of the kernel's list at R = 256); C = 200 leaves a ragged
-# channel group
+# channel group; s = 4, the largest adaptive bucket, fills 56 of the 64
+# entries of the prepass's axis tables
 ROI_BWD_CASES = (("mixed", None, 14, 2), ("P5", None, 14, 2),
                  ("none", None, 14, 2), ("outside", None, 14, 2),
                  ("stacked", None, 14, 2), ("mixed", 200, 7, 2),
-                 ("mixed", 200, 14, 1), ("mixed", None, 5, 3))
+                 ("mixed", 200, 14, 1), ("mixed", None, 5, 3),
+                 ("mixed", None, 14, 4))
 
 
 def roi_bwd_boxes(rng, kind: str, fixed: int, batch: int, R: int, C: int,
@@ -2174,9 +2305,9 @@ def check_roi_bwd_synthetic(dev, fixed: int, batch: int, R: int, C: int,
     """Kernel 2b against the plain VJP over ``ROI_BWD_CASES`` on P3-P5 of
     the training canvas at the step's R and C, f32 and bf16 (each also
     launched twice and its windows held, as ``roi_bwd_case`` does). With
-    ``timing``, "mixed" at the step's shapes is timed in both dtypes,
-    "stacked" and "none" (every tile empty: the cost of the zeros) in
-    bf16."""
+    ``timing``, "mixed" at the step's shapes is timed in both dtypes (and
+    at s = 4), "stacked" and "none" (every tile empty: the cost of the
+    zeros) in bf16."""
     from centermask2_tpu_torch.ops import assign_boxes_by_ratio
     from centermask2_tpu_torch.structures import boxes as box_ops
 
@@ -2199,8 +2330,9 @@ def check_roi_bwd_synthetic(dev, fixed: int, batch: int, R: int, C: int,
             errs["roi_align_backward"] = max(errs["roi_align_backward"],
                                              roi_bwd_case(args, what))
             main = (c, o, s) == (C, 14, 2)
-            if timing and main and (kind == "mixed" or (
-                    kind in ("stacked", "none") and dt != torch.float32)):
+            if timing and (main or (c, o, s) == (C, 14, 4)) and (
+                    kind == "mixed" or (main and kind in ("stacked", "none")
+                                        and dt != torch.float32)):
                 roi_bwd_row(args, what)
 
 
@@ -2322,7 +2454,22 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
         for k in lk))
     worst_ratio, worst_name, floors = 0.0, "", []
     runs_diff = {"plain": 0.0, "kernel": 0.0}
+    for name in ZERO_GRADS:
+        if name not in gk:
+            continue
+        module = name.rsplit(".", 1)[0] + "."
+        scale = max(float(gp[n].abs().max()) for n in gp
+                    if n.startswith(module))
+        noise = max(float(gk[name].abs().max()), float(gp[name].abs().max()))
+        if noise > ZERO_GRAD_REL * scale:
+            raise AssertionError(f"f32 step {name}: {noise:.3e}, above "
+                                 f"{ZERO_GRAD_REL} x {scale:.3e}")
+        log(f"  f32 train step, {name}: zero in exact arithmetic, "
+            f"{noise:.3e} in both runs at most ({noise / scale:.1e} of its "
+            f"module's largest gradient, tolerance {ZERO_GRAD_REL})")
     for name, g in gk.items():
+        if name in ZERO_GRADS:
+            continue
         p1, p2, k2 = gp[name], runs["p2"][1][name], runs["k2"][1][name]
         top = float(p1.abs().max())
         d_plain = float((p1 - p2).abs().max())
@@ -2801,22 +2948,26 @@ FROZEN_R50 = ("backbone.stem_conv1.", "backbone.res2_")  # FREEZE_AT 2
 def backbone_eval(dev, model, fixed: int = FIXED, min_size: int = SHORT,
                   max_size: int = 1333, shapes=EVAL_SHAPES,
                   sides=(20, 64, 240), graphs=None,
-                  pipeline_depth: int = 2) -> dict:
+                  pipeline_depth: int = 2, dataset=None,
+                  tasks=("bbox", "segm")) -> dict:
     """``evaluate_dataset`` with ``model`` (not s2d: the f32 image padded
     to ``fixed``) over the 8-image synthetic COCO set of ``[eval]``,
     through a ``CapturedInference`` (one canvas, one graph) and eagerly,
     with ``eval_runs``' launch gates; equal predictions and proposals
     (``check_same_runs``: an 80-class random model may detect none of
-    the set's 4 categories). Returns the launches counted."""
+    the set's 4 categories). ``dataset(root, shapes, sides=)`` makes the
+    set (``make_coco_dataset``'s by default) and ``tasks`` are the COCO
+    tasks scored. Returns the launches counted."""
     import tempfile
 
     modes = (("captured", {}, 1, "padded"),
              ("eager", {"fn": model.inference}, 0, None))
     with tempfile.TemporaryDirectory() as root:
-        ann = make_coco_dataset(root, shapes, sides=sides)
+        ann = (dataset or make_coco_dataset)(root, shapes, sides=sides)
         common = dict(image_root=root, fixed_size=fixed, min_size=min_size,
                       max_size=max_size, progress_every=0,
-                      read_image=np.load, pipeline_depth=pipeline_depth)
+                      read_image=np.load, pipeline_depth=pipeline_depth,
+                      tasks=tuple(tasks))
         runs, _, launches = eval_runs(model, ann, modes, common, len(shapes),
                                       graphs)
     check_same_runs(runs, ("captured", "eager"), "the captured and the "
@@ -2827,15 +2978,19 @@ def backbone_eval(dev, model, fixed: int = FIXED, min_size: int = SHORT,
 def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
                    batch: int = TRAIN_BATCH, n_gt: int = TRAIN_GT,
                    warmup: int = TRAIN_WARMUP, timed: int = TRAIN_TIMED,
-                   sides=(16, 600), graphs=None, timing: bool = True):
-    """The bf16 train step of ``cfg`` (FREEZE_AT 2: the ResNet's
-    ``stem_conv1`` and ``res2``) through ``train_loop``, captured and then
-    eager from the same weights: one launch of each kernel a step (or at
-    the warm-up and capture), one a replay by the profiler, finite losses,
-    the frozen stages bit-equal after the steps; ms a step, images/s, peak
-    memory and a replay's device time by the profiler; then one f32 step
-    through the kernels against the plain versions (``check_f32_step``).
-    Returns (the launches by kernel, the worst kernel/plain errors)."""
+                   sides=(16, 600), graphs=None, timing: bool = True,
+                   frozen_prefixes=FROZEN_R50, keypoints: bool = False):
+    """The bf16 train step of ``cfg`` through ``train_loop``, captured and
+    then eager from the same weights: one launch of each kernel a step (or
+    at the warm-up and capture), one a replay by the profiler, finite
+    losses, the parameters of ``frozen_prefixes`` (FREEZE_AT 2: the
+    ResNet's ``stem_conv1`` and ``res2``; none for FREEZE_AT 0) frozen and
+    bit-equal after the steps; ms a step, images/s, peak memory and a
+    replay's device time by the profiler; then one f32 step through the
+    kernels against the plain versions (``check_f32_step``). With
+    ``keypoints`` the batches are person-keypoint batches
+    (``make_train_batch``). Returns (the launches by kernel, the worst
+    kernel/plain errors)."""
     from centermask2_tpu_torch.train import CapturedTrainStep, batch_to_device
     from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
 
@@ -2843,7 +2998,8 @@ def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
     card = card_line()
     max_gt = cfg.TPU.MAX_GT_INSTANCES
     batches = [make_train_batch(300 + i, batch, fixed, n_gt, max_gt,
-                                sides=sides) for i in range(2)]
+                                sides=sides, keypoints=keypoints)
+               for i in range(2)]
     gen = torch.Generator(device=dev).manual_seed(0)
     runs = TrainLoops(batches, dev, gen)
     errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
@@ -2858,10 +3014,12 @@ def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
         if init_state is None:
             init_state = {k: v.clone() for k, v in model.state_dict().items()}
         frozen = {n: p.detach().clone() for n, p in model.named_parameters()
-                  if n.startswith(FROZEN_R50)}
-        if not frozen or any(p.requires_grad for n, p in
-                             model.named_parameters() if n in frozen):
-            raise AssertionError(f"{name}: FREEZE_AT 2 froze "
+                  if frozen_prefixes and n.startswith(frozen_prefixes)}
+        if bool(frozen) != bool(frozen_prefixes) or any(
+                p.requires_grad for n, p in model.named_parameters()
+                if n in frozen):
+            raise AssertionError(f"{name}: FREEZE_AT "
+                                 f"{cfg.MODEL.BACKBONE.FREEZE_AT} froze "
                                  f"{sorted(frozen)}")
         captured = isinstance(step, CapturedTrainStep)
         what = "captured" if captured else "eager"
@@ -2879,9 +3037,11 @@ def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
             f"{fixed}x{fixed}, B={batch}: one launch of each kernel "
             + (f"in each of the {WARMUP_STEPS} warm-up steps and at the "
                "capture, none at a replay" if captured else "a step")
-            + f"; losses finite (last total {last['total_loss']:.4f}); the "
-            f"{len(frozen)} stem_conv1 and res2 parameters bit-equal after "
-            f"the steps")
+            + f"; losses finite (last total {last['total_loss']:.4f}"
+            + (f", loss_keypoint {last['loss_keypoint']:.4f}"
+               if "loss_keypoint" in last else "") + ")"
+            + (f"; the {len(frozen)} stem_conv1 and res2 parameters "
+               "bit-equal after the steps" if frozen else ""))
         if captured:
             replay_launches(lambda: step(images, gt, draws), 3,
                             ("nms", "roi_align", "roi_align_backward"),
@@ -2958,6 +3118,266 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
                            windows[1] if timing else 0.0, graphs=graphs))
         del model
         drop()
+    return launches, errs
+
+
+# ------------------------------------------------------------- keypoints
+KEYPOINT_WINDOW_S = 2.0  # the windows of the adaptive and DCN requests
+ADAPTIVE_SIDES = (16, 1300)  # gt sides of the adaptive step: every bucket
+
+
+def make_keypoint_dataset(root: str, shapes=EVAL_SHAPES, seed: int = 11,
+                          sides=(40, 120, 300)) -> str:
+    """A COCO person-keypoint set from a seed: uint8 BGR ``.npy`` images
+    and per image three people (boxes of about ``sides``, within 10%),
+    each with 17 keypoints inside its box, a fifth of them not labeled
+    (0, at the origin) and the others visible (2) or not (1),
+    ``num_keypoints`` the labeled ones, and the box as its polygon.
+    Returns the annotation json's path."""
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i, (H, W) in enumerate(shapes, 1):
+        name = f"{i:012d}.npy"
+        np.save(os.path.join(root, name), u8_image(seed + i, H, W))
+        images.append({"id": i, "file_name": name, "height": H, "width": W})
+        for side in sides:
+            bw, bh = side * (0.9 + 0.2 * rng.rand(2))
+            x0, y0 = rng.rand() * (W - bw - 1), rng.rand() * (H - bh - 1)
+            kp = np.zeros((17, 3))
+            kp[:, 0] = x0 + rng.rand(17) * bw
+            kp[:, 1] = y0 + rng.rand(17) * bh
+            u = rng.rand(17)
+            kp[:, 2] = np.where(u < 0.2, 0, np.where(u < 0.6, 1, 2))
+            kp[0, 2] = 2  # at least one labeled
+            kp[kp[:, 2] == 0] = 0
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": 1, "bbox": [x0, y0, bw, bh],
+                         "area": bw * bh, "iscrowd": 0,
+                         "segmentation": [_polygon(rng, x0, y0, bw, bh, 0)],
+                         "keypoints": [float(v) for v in kp.flatten()],
+                         "num_keypoints": int((kp[:, 2] > 0).sum())})
+    path = os.path.join(root, "ann.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": 1, "name": "person",
+             "keypoints": [f"k{k}" for k in range(17)], "skeleton": []}]},
+            f)
+    return path
+
+
+def check_keypoint_ground_truth_ap(ann: str) -> dict:
+    """The ground truth fed back as predictions (score 1; each keypoint at
+    its pixel centre, x, y + 0.5, which the evaluator takes back off, with
+    probability 1) must score AP 100.0 for bbox and keypoints (OKS, COCO's
+    17 sigmas)."""
+    from centermask2_tpu_torch.evaluation import COCOEvaluator, COCOGt
+
+    with open(ann) as f:
+        gt = COCOGt(json.load(f))
+    ev = COCOEvaluator(gt, tasks=("bbox", "keypoints"),
+                       category_id_map={0: 1})
+    for img_id in sorted(gt.imgs):
+        a = gt.img_to_anns[img_id]
+        xywh = np.array([x["bbox"] for x in a], np.float64)
+        kp = np.array([x["keypoints"] for x in a], np.float64).reshape(
+            len(a), 17, 3)
+        kp[..., :2] += 0.5
+        kp[..., 2] = 1.0
+        ones = np.ones(len(a))
+        ev.process(img_id, {
+            "pred_boxes": np.concatenate([xywh[:, :2],
+                                          xywh[:, :2] + xywh[:, 2:]], 1),
+            "scores": ones, "mask_scores": ones,
+            "pred_classes": np.zeros(len(a), np.int64),
+            "pred_keypoints": kp})
+    res = ev.evaluate()
+    ap = {t: res[t]["AP"] for t in ("bbox", "keypoints")}
+    log(f"  evaluator, person-keypoint ground truth fed back: AP bbox "
+        f"{ap['bbox']:.4f}, keypoints (OKS) {ap['keypoints']:.4f}")
+    if any(abs(v - 100.0) > 1e-9 for v in ap.values()):
+        raise AssertionError(f"ground truth fed back scores {ap}")
+    return ap
+
+
+def keypoint_eval(dev, model, shapes=EVAL_SHAPES, sides=(40, 120, 300),
+                  **kw) -> dict:
+    """The eval entry point with the keypoint ``model`` over the synthetic
+    person-keypoint set (``make_keypoint_dataset``), captured and eagerly,
+    tasks bbox and keypoints (``backbone_eval``: equal predictions,
+    ``pred_keypoints`` in their records, and proposals); before it, the
+    set's ground truth fed back at AP 100. Returns the launches
+    counted."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        check_keypoint_ground_truth_ap(make_keypoint_dataset(
+            root, shapes, sides=sides))
+    return backbone_eval(dev, model, shapes=shapes, sides=sides,
+                         dataset=make_keypoint_dataset,
+                         tasks=("bbox", "keypoints"), **kw)
+
+
+def bucket_counts(args) -> dict:
+    """ROIs of one kernel 2 or 2b launch (its arguments) by adaptive
+    bucket (ceil(max(h, w) * scale / o), 4 above 4), of those with a
+    gradient for kernel 2b (a nonzero row of g)."""
+    if len(args) == 8:  # kernel 2: features, boxes, image, level, scales
+        boxes, levels, scales, o = args[1], args[3], args[4], args[5]
+        keep = torch.ones(boxes.shape[0], dtype=torch.bool,
+                          device=boxes.device)
+    else:  # kernel 2b: grad, boxes, image, level, shapes, dtype, scales
+        boxes, levels, scales, o = args[1], args[3], args[6], args[7]
+        keep = (args[0].reshape(args[0].shape[0], -1) != 0).any(dim=1)
+    scale = torch.tensor(scales, device=boxes.device)[levels.long()]
+    side = torch.maximum(boxes[:, 3] - boxes[:, 1], boxes[:, 2] - boxes[:, 0])
+    need = torch.ceil(side * scale / o)[keep]
+    return {s: int(((need <= s) & (need > lo)).sum()) if s < 4 else
+            int((need > lo).sum())
+            for s, lo in ((1, -1e9), (2, 1), (4, 2))}
+
+
+def adaptive_step(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
+                  n_gt: int = TRAIN_GT, sides=ADAPTIVE_SIDES,
+                  errs=None, timing: bool = True) -> dict:
+    """One f32 step (TF32 off, deterministic cuDNN) of the adaptive config
+    ``cfg``, eager, its gt boxes of ``sides`` px so that every bucket
+    gets ROIs: one launch of kernel 1, three of kernel 2 (s = 1, 2, 4)
+    and three of kernel 2b (launch counts), each launch against its plain
+    version on its own inputs (kernel 2b: twice bit-equal and its prepass
+    windows, ``roi_bwd_case``); with ``timing``, kernel 2b at s = 4 timed
+    on the step's input in f32 and bf16. Returns the launches."""
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.train import batch_to_device
+
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    max_gt = cfg.TPU.MAX_GT_INSTANCES
+    images, gt = batch_to_device(make_train_batch(
+        310, batch, fixed, n_gt, max_gt, sides=sides), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = torch.rand((batch, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN + max_gt),
+                       generator=gen, device=dev)
+    with exact_f32(deterministic=True):
+        model = build_trainer(cfg32, dev, capture=False)[0]
+        _kernels.reset_launch_counts()
+        seen = record_launches(lambda: step_grads(model, images, gt, draws),
+                               KERNEL_FNS)
+        counts = _kernels.launch_counts()
+    if counts != {"nms": 1, "roi_align": 3, "roi_align_backward": 3}:
+        raise AssertionError(f"adaptive f32 step: launches {counts}")
+    what = "adaptive f32 step"
+    fwd = [a[6] for a in seen["roi_align"]]
+    bwd = [a[8] for a in seen["roi_align_backward"]]
+    if sorted(fwd) != [1, 2, 4] or sorted(bwd) != [1, 2, 4]:
+        raise AssertionError(f"{what}: sampling ratios {fwd}, {bwd}")
+    with torch.no_grad():
+        errs["nms"] = max(errs["nms"], nms_case(
+            *seen["nms_keep_sorted"][0], what))
+        for args in seen["roi_align"]:
+            errs["roi_align"] = max(errs["roi_align"], roi_case(
+                *args[:7], f"{what}, s={args[6]}, ROIs by bucket "
+                f"{bucket_counts(args)}"))
+        for args in seen["roi_align_backward"]:
+            errs["roi_align_backward"] = max(
+                errs["roi_align_backward"], roi_bwd_case(
+                    args, f"{what}, s={args[8]}, ROIs with a gradient by "
+                    f"bucket {bucket_counts(args)}"))
+    log(f"  {what} at {fixed}x{fixed}, B={batch}: kernel 1 launched once, "
+        f"kernel 2 three times (s = {fwd}) and kernel 2b three times "
+        f"(s = {bwd}); each launch held against its plain version")
+    if timing:
+        s4 = next(a for a in seen["roi_align_backward"] if a[8] == 4)
+        roi_bwd_row(s4, f"{what}, s=4")
+        b16 = (s4[0].bfloat16(), *s4[1:5], torch.bfloat16, *s4[6:])
+        roi_bwd_row(b16, f"{what} input in bf16, s=4")
+    del seen, model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return counts
+
+
+def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
+                    windows=(WINDOW_S, KEYPOINT_WINDOW_S), train=None,
+                    eval_kw=None, adaptive=None, graphs=None,
+                    train_graphs=None, timing: bool = True):
+    """The ``[keypoints]`` phase, at full width, bf16, random weights from
+    seed 0:
+
+    1. the person-keypoint yaml (``keypoint_cfg``) served at each canvas,
+       eagerly and through ``CapturedInference`` (``graph_requests``: the
+       launches, the replay equal to the eager request slot by slot,
+       ``pred_keypoints`` included, kernels 1 and 2 against their plain
+       versions on the request's inputs, a captured and an eager window);
+    2. its eval entry point over a synthetic person-keypoint set, captured
+       and eager (``keypoint_eval``, the OKS task; the ground truth at AP
+       100);
+    3. its training, captured then eager, and one f32 step through the
+       kernels against the plain versions (``backbone_train``);
+    4. the adaptive ROIAlign buckets on the flagship (``adaptive_cfg``):
+       one request, eager and captured (three launches of kernel 2 each,
+       every one against its plain version; kernel 2 at s = 4 timed on the
+       request's input), then ``adaptive_step``;
+    5. the deformable convs on the flagship (``dcn_cfg``): one request,
+       eager and captured, the replay equal to eager, timed.
+
+    ``cfgs``: "keypoint", "adaptive", "dcn" -> config; ``train``,
+    ``eval_kw``, ``adaptive``: keyword arguments of ``backbone_train``,
+    ``keypoint_eval`` and ``adaptive_step``; ``graphs``, ``train_graphs``
+    as ``backbones_phase``'s. Returns (the launches by kernel, the worst
+    kernel/plain errors)."""
+    if cfgs is None:
+        cfgs = {"keypoint": keypoint_cfg(), "adaptive": adaptive_cfg(),
+                "dcn": dcn_cfg()}
+    dev = torch.device(dev)
+    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0}
+    errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def drop():
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    model = build_model(cfgs["keypoint"], dev)
+    add(graph_requests(dev, "keypoint V-39", model, canvases,
+                       windows[0] if timing else 0.0, graphs=graphs,
+                       errs=errs))
+    add(keypoint_eval(dev, model, graphs=graphs, **(eval_kw or {})))
+    del model
+    drop()
+    counts, train_errs = backbone_train(
+        dev, cfgs["keypoint"], "keypoint V-39", graphs=train_graphs,
+        timing=timing, frozen_prefixes=(), keypoints=True, **(train or {}))
+    add(counts)
+    for k in errs:
+        errs[k] = max(errs[k], train_errs[k])
+    drop()
+
+    model = build_model(cfgs["adaptive"], dev)
+    add(graph_requests(dev, "adaptive V-39", model, canvases[:1],
+                       windows[1] if timing else 0.0, graphs=graphs,
+                       errs=errs, roi_per_request=3))
+    if timing:
+        img = make_image(*canvases[0], dev)
+        seen = record_launches(lambda: model.inference(img))
+        s4 = next(a for a in seen["roi_align"] if a[6] == 4)
+        roi_row(*s4, "adaptive request, s=4")
+        del seen, s4
+    del model
+    drop()
+    add(adaptive_step(dev, cfgs["adaptive"], errs=errs, timing=timing,
+                      **(adaptive or {})))
+    drop()
+
+    model = build_model(cfgs["dcn"], dev)
+    add(graph_requests(dev, "DCN V-39", model, canvases[:1],
+                       windows[1] if timing else 0.0, graphs=graphs,
+                       errs=errs))
+    del model
+    drop()
     return launches, errs
 
 
@@ -3078,12 +3498,17 @@ def main() -> int:
         "V-19-slim-dw-eSE from their yamls at full width, bf16, random "
         f"weights (seed 0) ({card})")
     bb_launches, bb_errs = backbones_phase(dev)
+    log(f"[keypoints] {KEYPOINT_YAML} at full width, bf16, random weights "
+        "(seed 0): served, evaluated by OKS and trained; the flagship with "
+        f"the adaptive ROIAlign buckets and with deformable convs ({card})")
+    kp_launches, kp_errs = keypoints_phase(dev)
     for row in (nms, roi, bwd):
-        row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]])
+        row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]],
+                                 kp_errs[row["name"]])
 
     for row in (nms, roi, bwd):
-        row["launches"] = sum(c.get(row["name"], 0)
-                              for c in (*v39_launches, bb_launches))
+        row["launches"] = sum(c.get(row["name"], 0) for c in (
+            *v39_launches, bb_launches, kp_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")

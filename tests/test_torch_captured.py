@@ -57,7 +57,8 @@ class FakeGraph:
         counts = _kernels.launch_counts()
         for o, n in zip(pytree.tree_leaves(self.out),
                         pytree.tree_leaves(self.fn())):
-            o.copy_(n)
+            if o is not None:  # an empty slot (pred_keypoints without
+                o.copy_(n)  # the keypoint head)
         (_kernels.nms_launches, _kernels.roi_align_launches,
          _kernels.roi_align_backward_launches) = (
             counts["nms"], counts["roi_align"], counts["roi_align_backward"])
@@ -122,9 +123,10 @@ def test_captured_inference_graph_per_signature(s2d_model):
     for x, h, canvas in calls:
         got = prog(x, None, h, canvas)
         want = s2d_model.inference(x, None, h, canvas)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got.pred_keypoints is None and want.pred_keypoints is None
+        assert all(torch.equal(a, b) for a, b in zip(got[:7], want[:7]))
         assert want.valid.any()
-        outs.append((got, [t.clone() for t in got]))
+        outs.append((got, [t.clone() for t in got[:7]]))
     assert len(prog) == 3 and len(graphs.graphs) == 3
     assert [g.replays for g in graphs.graphs] == [2, 1, 1]
     # the fourth call replayed the first graph into the same buffers

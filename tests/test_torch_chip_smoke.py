@@ -406,3 +406,81 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
         assert f"R-50 {what} train step, " in out
     assert "stem_conv1 and res2 parameters bit-equal after the steps" in out
     assert "f32 train step, kernels vs plain: " in out
+
+
+def test_keypoint_config_is_its_yaml():
+    """``[keypoints]`` builds the keypoint yaml's config in Python, as
+    ``[backbones]`` does its own: equal to the yaml merged over the
+    defaults."""
+    import os
+
+    want = get_cfg()
+    want.merge_from_file(os.path.join(chip_smoke.REPO, "configs",
+                                      "centermask", chip_smoke.KEYPOINT_YAML))
+    assert chip_smoke.keypoint_cfg() == want
+    assert want.MODEL.KEYPOINT_ON and not want.MODEL.MASK_ON
+    assert chip_smoke.adaptive_cfg().TPU.POOLER_SAMPLING_RATIO == 0
+    dcn = chip_smoke.dcn_cfg()
+    assert dcn.MODEL.FCOS.USE_DEFORMABLE and dcn.MODEL.VOVNET.WITH_MODULATED_DCN
+
+
+def test_keypoints_phase_rehearsal(rehearsal, capsys):
+    """``[keypoints]`` on the CPU at 64x64 and 96x64 with narrow models in
+    f32: the keypoint model's requests eagerly and captured (launches, the
+    replay equal to the eager request with ``pred_keypoints``, the kernels
+    held on its inputs), its eval over 3 images with the OKS task and the
+    ground truth at AP 100, its training captured and eager and the f32
+    step against the plain versions; the adaptive flagship's request (3
+    launches of kernel 2 eager, 9 at the capture) and its f32 step (3 of
+    kernels 2 and 2b, each held); the DCN flagship's request."""
+    from test_torch_captured import FakeGraphs, _state
+
+    def narrow(cfg):
+        cfg = _tiny_backbone_cfg(cfg)
+        cfg.MODEL.VOVNET.CONV_BODY = "V-19-slim-eSE"
+        cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = [16, 16]
+        return cfg
+
+    cfgs = {"keypoint": narrow(chip_smoke.keypoint_cfg()),
+            "adaptive": narrow(chip_smoke.adaptive_cfg()),
+            "dcn": narrow(chip_smoke.dcn_cfg())}
+    cfgs["keypoint"].MODEL.FCOS.NUM_CLASSES = 1
+    launches, errs = chip_smoke.keypoints_phase(
+        "cpu", cfgs, canvases=((100, 64, 64), (103, 96, 64)),
+        train=dict(fixed=64, batch=2, n_gt=3, warmup=1, timed=2,
+                   sides=(8, 40)),
+        eval_kw=dict(fixed=256, min_size=128, max_size=250,
+                     shapes=((128, 250), (250, 128), (128, 128)),
+                     sides=(30, 60, 100), pipeline_depth=0),
+        adaptive=dict(fixed=64, batch=2, n_gt=3, sides=(8, 60)),
+        graphs=FakeGraphs(),
+        train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
+        timing=False)
+    # keypoint: 2 canvases x (1 + 3) + eval 3 + 3 + train 4 + 3; adaptive:
+    # (1 + 3) x 3 of kernel 2 and the step's 1 / 3 / 3; DCN: 1 + 3
+    assert launches == {"nms": 4 + 4 + 6 + 7 + 4 + 1 + 4,
+                        "roi_align": 8 + 6 + 7 + 12 + 3 + 4,
+                        "roi_align_backward": 7 + 3}
+    assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    out = capsys.readouterr().out
+    for what in ("keypoint V-39 f32 64x64", "keypoint V-39 f32 96x64",
+                 "adaptive V-39 f32 64x64", "DCN V-39 f32 64x64"):
+        assert f"  {what}: " in out
+        assert f"{what} replay vs eager pred_keypoints" in out or \
+            "keypoint" not in what
+    assert out.count("every output bit-equal True") == 4
+    assert "kernel 1 launched once and kernel 2 3 times by the eager " \
+        "request, 3 and 9 times by the capture" in out
+    for s in (1, 2, 4):
+        assert f"roi_align adaptive V-39 f32 64x64 request, s={s}:" in out
+        assert f"roi_align_backward adaptive f32 step, s={s}" in out
+    assert "person-keypoint ground truth fed back: AP bbox 100.0000, " \
+        "keypoints (OKS) 100.0000" in out
+    assert "keypoints AP" in out and "eval captured: 3 images" in out
+    assert ") of the captured and the eager loop equal" in out
+    for what in ("captured", "eager"):
+        assert f"keypoint V-39 {what} train step, " in out
+    assert "loss_keypoint" in out
+    assert "f32 train step, roi_heads.keypoint_head.score_lowres.bias: " \
+        "zero in exact arithmetic" in out
+    assert "f32 train step, kernels vs plain: " in out

@@ -113,7 +113,8 @@ def models():
 
 def _assert_equal(got, want):
     for f in want._fields:
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
 
 
 def _assert_near_jax(got, jout):
@@ -209,4 +210,6 @@ def test_export_cli_on_the_cpu(tmp_path, capsys):
         0, 256, (1, 9, 17, 48)).astype(np.uint8))
     res = fn(x, torch.tensor([[30, 61]], dtype=torch.int32))
     assert res.pred_masks.shape[:2] == res.valid.shape
-    assert all(torch.isfinite(t).all() for t in res if t.is_floating_point())
+    assert res.pred_keypoints is None
+    assert all(torch.isfinite(t).all() for t in res[:7]
+               if t.is_floating_point())

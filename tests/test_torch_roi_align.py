@@ -135,10 +135,81 @@ def test_double_eps_is_a_noop_on_f32_ratios():
     assert torch.equal(r + sys.float_info.epsilon, r)
 
 
-def test_sampling_ratio_zero_is_not_ported():
-    feats, boxes, batch, levels = make_inputs(C=4, seed=5)
-    with pytest.raises(NotImplementedError):
-        port_pool(feats, boxes, batch, levels, 14, 0)
+def _bucket_inputs(C: int = 6, seed: int = 5):
+    """P3-P5 of a 256x320 canvas and ROIs on each level whose adaptive
+    ratio ceil(max(h, w) * scale / 14) is 1, 2, 3 or 4 (the 4 bucket) and
+    5 (above 4, clamped to 4); ``levels`` cycles over P3-P5."""
+    rng = np.random.RandomState(seed)
+    N, H, W = 2, 256, 320
+    feats = [rng.randn(N, H // s, W // s, C).astype(np.float32)
+             for s in (8, 16, 32)]
+    boxes, levels = [], []
+    for lvl, stride in enumerate((8, 16, 32)):
+        for need in (0.6, 1.5, 2.5, 3.7, 5.2):  # in units of 14 px a level
+            side = need * 14 * stride
+            x0, y0 = rng.rand(2) * [W - 20, H - 20]
+            aspect = 0.5 + rng.rand()
+            boxes.append([x0, y0, x0 + side, y0 + side * aspect])
+            levels.append(lvl)
+    boxes = np.asarray(boxes, np.float32)
+    batch = rng.randint(0, N, len(boxes)).astype(np.int32)
+    return feats, boxes, batch, np.asarray(levels, np.int32)
+
+
+def _bucket_of(boxes, levels):
+    scale = np.asarray(SCALES, np.float32)[levels]
+    side = np.maximum(boxes[:, 3] - boxes[:, 1], boxes[:, 2] - boxes[:, 0])
+    return np.ceil(side * scale / 14)
+
+
+def test_sampling_ratio_zero_matches_jax():
+    """TPU.POOLER_SAMPLING_RATIO 0: the adaptive buckets (pools at s = 1,
+    2 and 4, each ROI's chosen by its ratio, 4 above it) equal JAX's, with
+    ROIs in each bucket and above 4 on every level; each ROI equals the
+    fixed-ratio pool of its bucket."""
+    feats, boxes, batch, levels = _bucket_inputs()
+    need = _bucket_of(boxes, levels)
+    assert {1, 2, 3, 4, 5} <= set(need.tolist())
+    want = np.asarray(jax.jit(
+        lambda fs: jroi.multilevel_roi_align(
+            fs, jnp.asarray(boxes), jnp.asarray(batch), jnp.asarray(levels),
+            SCALES, 14, 0))([jnp.asarray(f) for f in feats]))
+    got = port_pool(feats, boxes, batch, levels, 14, 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    bucket = np.where(need <= 1, 1, np.where(need <= 2, 2, 4))
+    for s in (1, 2, 4):
+        fixed = port_pool(feats, boxes, batch, levels, 14, s)
+        np.testing.assert_array_equal(got[bucket == s], fixed[bucket == s])
+
+
+def test_sampling_ratio_zero_gradient_matches_jax():
+    """The feature gradient of the adaptive pool: three pools' VJPs, each
+    with the other buckets' ROIs masked by the select, against
+    ``jax.vjp`` of JAX's (its separable VJP a bucket)."""
+    feats, boxes, batch, levels = _bucket_inputs(seed=6)
+    g = np.random.RandomState(7).randn(len(boxes), 6, 14, 14) \
+        .astype(np.float32)
+
+    def jpool(*fs):
+        return jroi.multilevel_roi_align(
+            list(fs), jnp.asarray(boxes), jnp.asarray(batch),
+            jnp.asarray(levels), SCALES, 14, 0)
+
+    want = jax.jit(lambda fs, ct: jax.vjp(jpool, *fs)[1](ct))(
+        [jnp.asarray(f) for f in feats],
+        jnp.asarray(np.transpose(g, (0, 2, 3, 1))))
+    tf = [torch.from_numpy(np.transpose(f, (0, 3, 1, 2))).requires_grad_(True)
+          for f in feats]
+    out = troi.multilevel_roi_align(
+        tf, torch.from_numpy(boxes), torch.from_numpy(batch),
+        torch.from_numpy(levels), SCALES, 14, 0)
+    out.backward(torch.from_numpy(g))
+    for lvl, (w, f) in enumerate(zip(want, tf)):
+        w = np.transpose(np.asarray(w), (0, 3, 1, 2))
+        np.testing.assert_allclose(f.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=f"level {lvl}")
+        assert np.abs(w).max() > 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
