@@ -1124,13 +1124,20 @@ KERNEL_CUDA_FNS = {"nms": ("nms_mask_kernel", "nms_scan_kernel"),
                                           "roi_align_backward_kernel")}
 GRAPH_REPLAYS = 5  # replays profiled for their kernel launches
 GRAPH_CANVASES = ((100, 800, 1088), (103, 1344, 1344))
+# a device sleep (20 ms at 1.98 GHz) before and after the profiled calls:
+# without it the profiler loses records of the first call after it starts
+# (an f32 1344x1344 replay, ~34k kernels, lost its port kernels in a
+# window of 5 now and then; centermask2_tpu_torch/tools/profile_replays.py
+# measures how often)
+REPLAY_PAD_CYCLES = int(1.98e9 * 0.020)
 
 
 def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
     """Each port kernel of ``kernels`` launched once per call (or
     ``per_call[kernel]`` times) in ``n`` calls of ``run()``, counted by
     the profiler (a graph's replay does not pass through the launch
-    functions, so their counts cannot see it). Raises on another count;
+    functions, so their counts cannot see it), the calls between two
+    device sleeps of ``REPLAY_PAD_CYCLES``. Raises on another count;
     returns the calls verified, 0 when the profiler records no device
     time (not measured)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1140,8 +1147,10 @@ def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
     evs = []
     if torch.cuda.is_available():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(REPLAY_PAD_CYCLES)
             for _ in range(n):
                 run()
+            torch.cuda._sleep(REPLAY_PAD_CYCLES)
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if getattr(e, "device_time_total", 0) > 0]
@@ -1153,13 +1162,16 @@ def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
            for k in kernels for fn in KERNEL_CUDA_FNS[k]}
     want = {fn: n * (per_call or {}).get(k, 1)
             for k in kernels for fn in KERNEL_CUDA_FNS[k]}
+    events = sum(e.count for e in evs)
     if got != want:
         raise AssertionError(f"{what}: {n} calls launched {got}, {want} "
-                             "expected")
+                             f"expected ({events} device events in the "
+                             "window)")
     times = "once" if not per_call else ", ".join(
         f"{k} {v}x" for k, v in per_call.items())
     log(f"  {what}: the profiler counts each CUDA kernel of "
-        f"{', '.join(kernels)} {times} per call over {n} calls ({got})")
+        f"{', '.join(kernels)} {times} per call over {n} calls ({got}; "
+        f"{events} device events in the window)")
     return n
 
 
