@@ -13,15 +13,20 @@ port's state_dict, inverting the transforms of the JAX package's
 
 Module paths map one to one (the port mirrors the JAX module names);
 only leaf names change: ``kernel`` -> ``weight``, a GroupNorm's
-``gn/scale`` -> ``gn.weight``, and the keypoint head's deconv, whose JAX
-leaves sit on the head (``score_lowres_kernel``, ``score_lowres_bias``),
-becomes its module ``score_lowres`` (``weight``, ``bias``). This module imports nothing of JAX: it
-reads plain arrays.
+``gn/scale`` -> ``gn.weight``, a BatchNorm's ``bn/scale`` -> ``bn.weight``,
+and the keypoint head's deconv, whose JAX leaves sit on the head
+(``score_lowres_kernel``, ``score_lowres_bias``), becomes its module
+``score_lowres`` (``weight``, ``bias``). A BN or SyncBN model's running
+statistics come from flax's ``batch_stats`` collection (``.../bn/mean``,
+``.../bn/var``), which ``load_jax_params`` takes beside the parameters;
+MobileNetV2's FrozenBN modules, also named ``bn...``, hold
+``frozen_scale``/``frozen_bias`` leaves and map as every FrozenBN does.
+This module imports nothing of JAX: it reads plain arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,30 +62,46 @@ def _leaf(path: Tuple[str, ...], v: np.ndarray,
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {v.ndim}")
         name = "weight"
-    elif name == "scale" and mod and mod[-1] == "gn":
+    elif name == "scale" and mod and mod[-1] in ("gn", "bn"):
         name = "weight"
-    elif name not in ("bias", "scale", "frozen_scale", "frozen_bias"):
+    elif name in ("mean", "var") and not (mod and mod[-1] == "bn"):
+        raise ValueError(f"{'/'.join(path)}: running statistic outside "
+                         "a BatchNorm")
+    elif name not in ("bias", "scale", "frozen_scale", "frozen_bias",
+                      "mean", "var"):
         raise ValueError(f"{'/'.join(path)}: unknown JAX leaf {name!r}")
     return ".".join([*mod, name]), np.ascontiguousarray(v, dtype=np.float32)
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
-                        maskiou_resolution: int = 7
+                        maskiou_resolution: int = 7,
+                        batch_stats: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, Tuple[Tuple[str, ...], torch.Tensor]]:
-    """Port key -> (JAX path, tensor) for every JAX leaf."""
+    """Port key -> (JAX path, tensor) for every JAX leaf of ``params``
+    and of ``batch_stats`` (flax's collection of the same name, or None).
+    """
+    leaves = _flatten(params)
+    if batch_stats:
+        for path, v in _flatten(batch_stats).items():
+            if path[-1] not in ("mean", "var"):
+                raise ValueError(f"{'/'.join(path)}: unknown batch_stats "
+                                 "leaf")
+            leaves[path] = v
     out = {}
-    for path, v in _flatten(params).items():
+    for path, v in leaves.items():
         key, arr = _leaf(path, v, maskiou_resolution)
         out[key] = (path, torch.tensor(arr))
     return out
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any],
-                    maskiou_resolution: int = 7) -> None:
-    """Load JAX parameters into ``model`` with ``strict=True``. Raises if
-    any JAX leaf has no place in the model (naming the leaf), if a model
+                    maskiou_resolution: int = 7,
+                    batch_stats: Optional[Mapping[str, Any]] = None) -> None:
+    """Load JAX parameters (and, for a BN or SyncBN model, flax's
+    ``batch_stats``) into ``model`` with ``strict=True``. Raises if any
+    JAX leaf has no place in the model (naming the leaf), if a model
     entry gets no JAX leaf, or if a shape differs."""
-    converted = state_dict_from_jax(params, maskiou_resolution)
+    converted = state_dict_from_jax(params, maskiou_resolution, batch_stats)
     own = model.state_dict()
     unused = sorted("/".join(p) for k, (p, _) in converted.items()
                     if k not in own)

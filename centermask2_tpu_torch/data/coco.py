@@ -205,6 +205,8 @@ def train_batches(
     tight_pad: bool = False,  # TPU.TRAIN_TIGHT_PAD
     with_keypoints: bool = False,  # MODEL.KEYPOINT_ON: adds gt_keypoints
     read_image: ReadImage = read_image_bgr,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless (or ``epochs``-bounded) shuffled batches with multi-scale
     jitter and random horizontal flip (JAX ``coco.py:211-343``, batch for
@@ -217,11 +219,25 @@ def train_batches(
     depend on it. ``tight_pad`` groups batches by orientation (detectron2's
     aspect-ratio grouping) and pads each to the quantized tight canvas
     covering it (``s2d_serving_canvas`` with short = the largest draw, at
-    most 4 canvases); epoch tails that fill no group are batched mixed."""
+    most 4 canvases); epoch tails that fill no group are batched mixed.
+
+    ``batch_size`` is the global batch; with ``world`` ranks each yields
+    its rows ``[rank * b, (rank + 1) * b)``, b = batch_size / world, of
+    every global batch (``parallel/mesh.py::shard_batch``). Every rank
+    draws the same shuffle and augmentations from ``seed`` (detectron2's
+    TrainingSampler shares one seed), so the ranks' rows of a global batch
+    are disjoint and together are the batch of a world of one, canvas
+    included. The JAX CLI seeds each process with ``SEED + process`` and
+    lets ranks draw one image twice into a global batch; the port does
+    not."""
     if random_flip not in ("horizontal", "none"):
         raise ValueError(f"INPUT.RANDOM_FLIP {random_flip!r}")
     if sampling not in ("choice", "range"):
         raise ValueError(f"INPUT.MIN_SIZE_TRAIN_SAMPLING {sampling!r}")
+    if batch_size % world or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of {world}: a global batch of "
+                         f"{batch_size} does not split")
+    local = batch_size // world
     pool = None
     if workers > 0:
         from concurrent.futures import ThreadPoolExecutor
@@ -259,7 +275,8 @@ def train_batches(
                     patch_size=patch_size, hflip=job["hflip"],
                     with_keypoints=with_keypoints, read_image=read_image)
 
-            examples = list(pool.map(load, jobs) if pool else map(load, jobs))
+            mine = jobs[rank * local:(rank + 1) * local]
+            examples = list(pool.map(load, mine) if pool else map(load, mine))
             keys = BATCH_KEYS + (("gt_keypoints",) if with_keypoints else ())
             batch = {k: np.stack([e[k] for e in examples]) for k in keys}
             batch["image_ids"] = [e["image_id"] for e in examples]

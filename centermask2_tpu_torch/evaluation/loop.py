@@ -15,6 +15,11 @@ By default on CUDA the requests replay captured CUDA graphs
 (``export/captured.py::CapturedInference``, one per canvas met), the
 counterpart of the JAX loop's jitted forward; ``fn=model.inference``
 runs them eagerly.
+
+With ``distributed=True`` in a process group each process evaluates its
+strided share of the images (``parallel/distributed.py::process_subset``),
+the predictions and proposals of every process are gathered, and rank 0
+scores them; the other ranks return no metrics (JAX ``loop.py:119-188``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from ..data import (detector_postprocess, preprocess_for_model,
 from ..data.coco import CocoDataset
 from ..data.prefetch import prefetch
 from ..export.captured import CapturedInference, supports_graphs
+from ..parallel.distributed import (all_gather_objects, is_main_process,
+                                    process_count, process_subset)
 from .coco_eval import COCOEvaluator, COCOGt
 
 
@@ -73,6 +80,7 @@ def evaluate_dataset(
     read_image: Callable[[str], np.ndarray] = read_image_bgr,
     fn: Optional[Callable] = None,
     kpt_oks_sigmas: Optional[Sequence[float]] = None,
+    distributed: bool = False,
 ):
     """Evaluate ``model`` (a ``CenterMask`` in eval mode, on its device)
     over a COCO-format dataset, one image per request.
@@ -106,6 +114,12 @@ def evaluate_dataset(
     (scaled to the original image) into the evaluator, which scores the
     "keypoints" task by OKS with ``kpt_oks_sigmas``
     (TEST.KEYPOINT_OKS_SIGMAS; COCO's 17 when empty).
+
+    ``distributed`` (in a process group of more than one process): this
+    process runs its strided share of the images, every process's
+    predictions are gathered, and rank 0 returns the metrics of all of
+    them; the other ranks return ``{}``, their own ms per image and an
+    evaluator holding every prediction.
     """
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
@@ -129,6 +143,9 @@ def evaluate_dataset(
                               category_id_map=ds.contiguous_to_cat,
                               kpt_oks_sigmas=kpt_oks_sigmas)
     ids = ds.ids[:limit] if limit else ds.ids
+    multiproc = distributed and process_count() > 1
+    if multiproc:
+        ids = list(process_subset(ids))
 
     def produce():
         for img_id in ids:
@@ -178,6 +195,16 @@ def evaluate_dataset(
     while pending:
         drain()
     wall = time.perf_counter() - t_start
+
+    if multiproc:
+        # the reference's cross-rank comm.gather, then rank 0 scores
+        gathered = all_gather_objects(
+            (evaluator.predictions, evaluator.proposals))
+        evaluator.predictions = [p for preds, _ in gathered for p in preds]
+        evaluator.proposals = {k: v for _, props in gathered
+                               for k, v in props.items()}
+        if not is_main_process():
+            return {}, wall / max(len(ids), 1) * 1000.0, evaluator
 
     results = evaluator.evaluate()
     results["box_proposals"] = evaluator.evaluate_proposals()

@@ -1,5 +1,7 @@
 from .blocks import (
+    BN_EPS,
     GN_EPS,
+    BatchNorm,
     Conv2d,
     ConvNormAct,
     ConvTranspose2d,
@@ -12,13 +14,14 @@ from .blocks import (
     get_norm,
     hsigmoid,
     max_pool2d_ceil,
+    no_stat_updates,
     reset_parameters,
 )
 from .deform import DeformConvBlock
 
 __all__ = [
-    "GN_EPS", "Conv2d", "ConvNormAct", "ConvTranspose2d", "DeformConvBlock",
-    "FrozenBatchNorm", "GroupNorm", "Linear", "Scale", "SpatialAttention",
+    "BN_EPS", "GN_EPS", "BatchNorm", "Conv2d", "ConvNormAct",
+    "ConvTranspose2d", "DeformConvBlock", "FrozenBatchNorm", "GroupNorm", "Linear", "Scale", "SpatialAttention",
     "eSEModule", "get_norm", "hsigmoid", "max_pool2d_ceil",
-    "reset_parameters",
+    "no_stat_updates", "reset_parameters",
 ]

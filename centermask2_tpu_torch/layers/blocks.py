@@ -8,13 +8,16 @@ do with their ``dtype`` field.
 Parameter names follow the JAX tree so that ``checkpoint/from_jax.py``
 maps every leaf by name: a JAX ``kernel`` is the port's ``weight`` (in
 torch layout), ``bias`` stays ``bias``, the GroupNorm ``gn/scale`` is
-``gn.weight``, and FrozenBN keeps ``frozen_scale``/``frozen_bias``.
+``gn.weight``, a BatchNorm's ``bn/scale`` is ``bn.weight`` (its
+``batch_stats`` ``bn/mean`` and ``bn/var`` are the buffers ``bn.mean`` and
+``bn.var``), and FrozenBN keeps ``frozen_scale``/``frozen_bias``.
 Each parameterised block has ``reset_parameters(generator)`` drawing the
 JAX initializer's distribution from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 GN_EPS = 1e-5
+BN_EPS = 1e-5
 
 # Initializer names (the JAX package's flax initializers):
 # "kaiming_fan_out" = variance_scaling(2, fan_out, normal) (c2_msra_fill),
@@ -191,6 +195,89 @@ class GroupNorm(nn.Module):
                             self.gn.bias, self.gn.eps).to(x.dtype)
 
 
+class _BNState(nn.Module):
+    """flax ``nn.BatchNorm``'s leaves under the JAX module name ``bn``:
+    the parameters ``weight`` (flax ``scale``) and ``bias``, and the
+    ``batch_stats`` buffers ``mean`` and ``var``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+
+_STAT_UPDATES = [True]
+
+
+@contextlib.contextmanager
+def no_stat_updates():
+    """Train-mode BatchNorm inside leaves its running statistics alone:
+    a recomputed forward (``TPU.REMAT_BACKBONE``) must not move them a
+    second time, as JAX's functional remat moves them once."""
+    _STAT_UPDATES.append(False)
+    try:
+        yield
+    finally:
+        _STAT_UPDATES.pop()
+
+
+class BatchNorm(nn.Module):
+    """Train-capable BatchNorm with flax ``nn.BatchNorm``'s semantics (JAX
+    ``blocks.py:159-184``), written out rather than taken from
+    ``nn.BatchNorm2d``, whose running statistics differ:
+
+    - in training (the module's ``training`` flag; JAX keys it off the
+      mutability of ``batch_stats``) the moments are float32 means of x
+      and x^2 over (N, H, W), the variance ``max(E[x^2] - E[x]^2, 0)``
+      (biased, and the running variance keeps that same biased value),
+      and the running values move by ``0.9 * run + 0.1 * batch``;
+    - in eval the running values normalize;
+    - the output is ``(x - mean) * rsqrt(var + eps) * scale + bias`` with
+      float32 statistics and parameters, so it is float32 whatever the
+      activation's dtype (flax's ``dtype=None`` promotes a bf16 input).
+
+    ``sync`` (SyncBN): the two moments are averaged over ``group``
+    inside the forward (flax ``axis_name``, one ``pmean`` of the stacked
+    moments), with the gradient flowing through that mean. ``group`` is
+    set by ``CenterMask.loss`` for its call; None (no mapped axis) keeps
+    the statistics local, as JAX does outside ``shard_map``."""
+
+    def __init__(self, features: int, sync: bool = False,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.bn = _BNState(features)
+        self.sync = sync
+        self.momentum = momentum
+        self.group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        st = self.bn
+        if self.training:
+            axes = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            moments = torch.stack([xf.mean(dim=axes),
+                                   (xf * xf).mean(dim=axes)])
+            if self.sync:
+                from ..utils.comm import pmean
+
+                moments = pmean(moments, self.group)
+            mean, mean2 = moments[0], moments[1]
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            if _STAT_UPDATES[-1]:
+                m = self.momentum
+                with torch.no_grad():
+                    st.mean.copy_(m * st.mean + (1 - m) * mean)
+                    st.var.copy_(m * st.var + (1 - m) * var)
+        else:
+            mean, var = st.mean, st.var
+        mul = torch.rsqrt(var + BN_EPS) * st.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + st.bias.reshape(shape)
+
+
 def get_norm(norm: str, features: int) -> Optional[nn.Module]:
     """Norm factory mirroring detectron2 get_norm as the reference uses it."""
     if not norm or norm == "none":
@@ -199,10 +286,10 @@ def get_norm(norm: str, features: int) -> Optional[nn.Module]:
         return FrozenBatchNorm(features)
     if norm == "GN":
         return GroupNorm(features)
-    if norm in ("BN", "SyncBN"):
-        raise NotImplementedError(
-            f"norm {norm!r} is not ported yet (ROADMAP queue 1, "
-            "'Data parallelism')")
+    if norm == "BN":
+        return BatchNorm(features)
+    if norm == "SyncBN":
+        return BatchNorm(features, sync=True)
     raise ValueError(f"Unknown norm: {norm}")
 
 

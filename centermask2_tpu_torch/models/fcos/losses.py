@@ -9,9 +9,10 @@
   centerness-weighted GIoU (boxes), BCE (centerness).
 
 The two normalizers (positives, centerness sum) are means across data
-replicas in the reference. Here they are local: ``reduce``, when given,
-is a callable that returns the cross-replica mean of a scalar tensor
-(ROADMAP queue 1, 'Data parallelism'); ``None`` is one replica.
+replicas in the reference: ``reduce``, when given, is a callable that
+returns the cross-replica mean of a scalar tensor, with no gradient
+(``utils/comm.py::mean_reduce``, the JAX ``psum(x) / world``);
+``None`` is one replica.
 """
 
 from __future__ import annotations

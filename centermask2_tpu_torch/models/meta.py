@@ -25,23 +25,29 @@ MODEL.KEYPOINT_ON the ROI heads carry the keypoint head: ``inference``
 adds ``pred_keypoints`` and ``loss`` adds ``loss_keypoint``. The
 deformable convs (MODEL.VOVNET.STAGE_WITH_DCN, MODEL.FCOS.USE_DEFORMABLE)
 and the adaptive ROIAlign buckets (TPU.POOLER_SAMPLING_RATIO 0) are
-ported. Not ported yet, each raising ``NotImplementedError``, under
-these items of ROADMAP queue 1: BN and SyncBN ('Data parallelism') and
-``TPU.REMAT_BACKBONE`` ('Leftovers of done items'). ``TPU.APPROX_TOPK``
-has no port: it selects the TPU's approximate top-k. More than one
-deformable group is refused: the JAX reference cannot run it.
+ported, and so are BN and SyncBN (``layers/blocks.py::BatchNorm``; ``loss``
+trains them in the module's train mode) and ``TPU.REMAT_BACKBONE`` (the
+backbone recomputed in the backward, ``torch.utils.checkpoint``).
+``loss(group=...)`` is the JAX ``loss(axis_name=...)``: the FCOS
+normalizers and SyncBN's moments are averaged over the process group.
+``TPU.APPROX_TOPK`` has no port: it selects the TPU's approximate top-k.
+More than one deformable group is refused: the JAX reference cannot run
+it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import CfgNode
-from ..layers import reset_parameters
+from ..layers import BatchNorm, no_stat_updates, reset_parameters
+from ..utils.comm import Group, mean_reduce
 from ..utils.device import DeviceLike, resolve_device
 from ..ops import masked_topk
 from ..ops.losses import optax_sigmoid_bce
@@ -94,6 +100,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 BACKBONE_TYPES = ("vovnet", "resnet", "mobilenet")
 TOP_LEVEL_BLOCKS = {2: "p6p7", 1: "p6", 0: None}  # FCOS.TOP_LEVELS
+
+
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s (forward, recomputation) contexts."""
+    return contextlib.nullcontext(), no_stat_updates()
 
 
 class CenterMask(nn.Module):
@@ -170,6 +181,7 @@ class CenterMask(nn.Module):
         proposal_append_gt: bool = True,
         s2d_input: bool = False,
         pixel_mean: Sequence[float] = (103.53, 116.28, 123.675),
+        remat_backbone: bool = False,
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
@@ -216,6 +228,7 @@ class CenterMask(nn.Module):
         self.proposal_append_gt = proposal_append_gt
         self.dtype = dtype
         self.s2d_input = s2d_input
+        self.remat_backbone = remat_backbone
         # BGR mean of the on-device normalization of uint8 inputs
         # (MODEL.PIXEL_MEAN); not a parameter, so not in the state_dict
         self.register_buffer("pixel_mean",
@@ -273,7 +286,13 @@ class CenterMask(nn.Module):
                 "(check TPU.FIXED_EDGE_SIZE or the tight-compute serving "
                 "canvas)")
         x = images.permute(0, 3, 1, 2).to(self.dtype).contiguous()
-        bottom_up = self.backbone(x)
+        if self.remat_backbone and torch.is_grad_enabled():
+            # JAX nn.remat: the backward recomputes the backbone from its
+            # input; the recomputation leaves BN's running statistics alone
+            bottom_up = checkpoint(self.backbone, x, use_reentrant=False,
+                                   context_fn=_remat_contexts)
+        else:
+            bottom_up = self.backbone(x)
         return self.fpn([bottom_up[f] for f in self.fpn_in_features])
 
     def _fcos_raw(self, feats: Dict[str, torch.Tensor]):
@@ -469,8 +488,8 @@ class CenterMask(nn.Module):
 
     def loss(self, images: torch.Tensor, gt: GroundTruth,
              draws: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None
-             ) -> Dict[str, torch.Tensor]:
+             generator: Optional[torch.Generator] = None,
+             group: Group = None) -> Dict[str, torch.Tensor]:
         """Training losses (FCOS + mask + MaskIoU, and keypoints with
         ``keypoint_on`` and ``gt.keypoints``), f32 scalars on the device,
         with no host sync (JAX ``meta.py:437-629``).
@@ -480,7 +499,14 @@ class CenterMask(nn.Module):
         uniform numbers, (B, K + G) with K = the post-NMS train proposals
         and G = the gt capacity when PROPOSAL_APPEND_GT is on (else
         (B, K)); drawn from ``generator`` (on the images' device) when
-        not given."""
+        not given. ``group``: the data-parallel process group (JAX
+        ``axis_name``), over which the FCOS normalizers and SyncBN's
+        moments are averaged; it stays SyncBN's group for the backward
+        (a recomputed backbone reduces again). BN and SyncBN train as
+        the model's mode says: the train step puts it in train mode."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm) and m.sync:
+                m.group = group
         B = images.shape[0]
         H, W = self.canvas_hw(images)
         dev = images.device
@@ -506,7 +532,7 @@ class CenterMask(nn.Module):
             labels.reshape(-1), reg_targets.reshape(-1, 4),
             flat(logits, self.num_classes), flat(reg, 4), flat(ctr, 1)[:, 0],
             self.num_classes, self.focal_alpha, self.focal_gamma,
-            self.loc_loss_type)
+            self.loc_loss_type, reduce=mean_reduce(group))
         if not self.roi_training:
             return losses
 
@@ -716,17 +742,13 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
     in eval mode, with parameters drawn from ``seed`` by the JAX
     package's initializers. Load real weights afterwards with
     ``checkpoint.from_jax.load_jax_params``. Training takes the same
-    model (no layer behaves differently in train mode)."""
+    model; only BN and SyncBN behave differently in train mode."""
     dev = resolve_device(device)
     kind = backbone_type(cfg)
     if cfg.TPU.APPROX_TOPK:
         raise NotImplementedError(
             "TPU.APPROX_TOPK selects the TPU's approximate top-k, which has "
             "no CUDA counterpart; the port decodes with the exact top-k")
-    if cfg.TPU.REMAT_BACKBONE:
-        raise NotImplementedError(
-            "TPU.REMAT_BACKBONE (backbone recomputation in the backward) is "
-            "not ported yet (ROADMAP queue 1, 'Leftovers of done items')")
     fpn_in = tuple(cfg.MODEL.FPN.IN_FEATURES) or {
         "vovnet": ("stage3", "stage4", "stage5"),
         "resnet": tuple(cfg.MODEL.RESNETS.OUT_FEATURES)}.get(kind, ())
@@ -809,6 +831,7 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         # the s2d stem is VoVNet's (JAX meta.py:799)
         s2d_input=cfg.TPU.S2D_STEM_INPUT and kind == "vovnet",
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        remat_backbone=cfg.TPU.REMAT_BACKBONE,
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
     )
     reset_parameters(model, torch.Generator().manual_seed(seed))

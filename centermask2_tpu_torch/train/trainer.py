@@ -1,6 +1,7 @@
 """The training step and loop (the port of
 ``centermask2_tpu/train/trainer.py`` and of the loop body of the
-repository's ``tools/train_net.py``), for one process on one device.
+repository's ``tools/train_net.py``): one process on one device, or one
+rank of a data-parallel process group, each rank on its own device.
 
 ``make_train_step`` returns the step: the losses of ``CenterMask.loss``,
 their sum's backward, the clipped SGD update and the schedule's step,
@@ -22,8 +23,24 @@ buffers and the schedule's count are updated in place by every replay;
 the graph stays valid across a restore. ``train_loop`` feeds the step
 host batches (``data/coco.py::train_batches``) through pinned and
 device buffers that it reuses, and is the loop both
-``tools/train_net.py`` and ``chip_smoke.py`` run. Data parallelism (the JAX shard_map step) waits
-for ROADMAP queue 1, 'Data parallelism'.
+``tools/train_net.py`` and ``chip_smoke.py`` run.
+
+With a process ``group`` the step is the JAX ``shard_map`` step
+(``trainer.py:47-115``) as ranks: each rank's loss averages the FCOS
+normalizers (and SyncBN's moments) over the group, and after the backward
+one all-reduce sums a flat buffer holding every gradient (the ``counted``
+frozen leaves' among them), the plain BN running statistics and the
+losses, which is then divided by the world size: JAX's ``pmean`` of the
+gradients, the losses, ``total_loss`` and the ``batch_stats``. SyncBN's
+statistics are global already and stay out of the buffer. The buffer is
+allocated at the first step and reused, so that a captured step reads and
+writes fixed addresses; on NCCL the all-reduce is captured with the step
+(the warm-up steps run the first collective, which sets up the
+communicator). On gloo the step runs eagerly: the caller passes
+``capture=False``, and ``capture=True`` raises. Every rank must start from
+the same parameters (``parallel/mesh.py::replicate``) and draw the same
+sampler uniforms (a generator seeded alike on every rank), as JAX hands
+every replica the same key.
 """
 
 from __future__ import annotations
@@ -35,7 +52,9 @@ import numpy as np
 import torch
 
 from ..export.captured import CudaGraphs, supports_graphs
+from ..layers import BatchNorm
 from ..models.meta import CenterMask, GroundTruth
+from ..utils.comm import Group, all_reduce_sum_, is_gloo, world_size
 
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[..., Metrics]
@@ -45,19 +64,66 @@ StepFn = Callable[..., Metrics]
 WARMUP_STEPS = 3
 
 
-def _step_body(model: CenterMask, optimizer, scheduler):
-    """One update from given draws: ``(images, gt, draws) -> metrics``."""
+class _Pmean:
+    """The cross-rank mean of a step (the module docstring): one flat
+    buffer of the gradients, the plain BN running statistics and the
+    losses, summed over ``group`` in one all-reduce and divided by the
+    world size. The buffer is allocated at the first call and reused."""
+
+    def __init__(self, model: CenterMask, optimizer, group: Group):
+        self.group = group
+        self.world = world_size(group)
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.params += list(getattr(optimizer, "counted", ()))
+        self.stats = [t for m in model.modules()
+                      if isinstance(m, BatchNorm) and not m.sync
+                      for t in (m.bn.mean, m.bn.var)]
+        self.flat = None
+        self.views = None
+
+    def __call__(self, losses: torch.Tensor) -> torch.Tensor:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        parts = grads + self.stats + [losses]
+        if self.flat is None:
+            if any(t.dtype != torch.float32 for t in parts):
+                raise TypeError("the data-parallel step reduces float32 "
+                                "gradients, statistics and losses")
+            self.flat = torch.empty(sum(t.numel() for t in parts),
+                                    dtype=torch.float32, device=losses.device)
+            self.views = [v.view_as(t) for v, t in zip(
+                self.flat.split([t.numel() for t in parts]), parts)]
+        elif len(parts) != len(self.views):
+            raise RuntimeError("the set of gradients changed between steps")
+        torch._foreach_copy_(self.views, parts)
+        all_reduce_sum_(self.flat, self.group)
+        self.flat.div_(self.world)
+        torch._foreach_copy_(parts[:-1], self.views[:-1])
+        return self.views[-1]
+
+
+def _step_body(model: CenterMask, optimizer, scheduler, group: Group = None):
+    """One update from given draws: ``(images, gt, draws) -> metrics``.
+    BN and SyncBN train in train mode for the loss (JAX applies with
+    ``batch_stats`` mutable); the model's mode is put back after it."""
+    pmean = _Pmean(model, optimizer, group) if group is not None else None
 
     def body(images: torch.Tensor, gt: GroundTruth,
              draws: Optional[torch.Tensor]) -> Metrics:
         optimizer.zero_grad(set_to_none=True)
-        losses = model.loss(images, gt, draws=draws)
-        total = sum(losses.values())
-        total.backward()
+        was_training = model.training
+        model.train()  # through the backward, which may recompute (remat)
+        try:
+            losses = model.loss(images, gt, draws=draws, group=group)
+            total = sum(losses.values())
+            total.backward()
+        finally:
+            model.train(was_training)
+        values = torch.stack([*losses.values(), total]).detach()
+        if pmean is not None:  # a copy: the buffer is the next step's
+            values = pmean(values).clone()
         optimizer.step()
         scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
+        metrics = dict(zip([*losses, "total_loss"], values.unbind()))
         return metrics
 
     return body
@@ -87,9 +153,9 @@ class CapturedTrainStep:
     by default). ``capture_s``: the seconds the capture took."""
 
     def __init__(self, model: CenterMask, optimizer, scheduler, *,
-                 graphs=None):
+                 graphs=None, group: Group = None):
         self.model = model
-        self.body = _step_body(model, optimizer, scheduler)
+        self.body = _step_body(model, optimizer, scheduler, group)
         self.graphs = graphs if graphs is not None else CudaGraphs(
             next(model.parameters()).device)
         self.calls = 0
@@ -128,20 +194,27 @@ class CapturedTrainStep:
 
 def make_train_step(model: CenterMask, optimizer, scheduler, *,
                     capture: Optional[bool] = None,
-                    graphs=None) -> StepFn:
+                    graphs=None, group: Group = None) -> StepFn:
     """Returns ``step(images, gt, draws=None, generator=None) -> metrics``:
     the five losses and ``total_loss``, detached device scalars. Without
     ``draws`` the step draws the sampler's uniforms from ``generator``.
     ``capture`` (default: on CUDA) returns a ``CapturedTrainStep``; else
-    the step runs eagerly. The optimizer's ``counted`` tensors (frozen
-    leaves that clipping by norm counts) get gradients from here on."""
+    the step runs eagerly. ``group``: the data-parallel process group
+    (the module docstring), or None for one process; a gloo group runs
+    eagerly only, and ``capture=True`` with one raises. The optimizer's
+    ``counted`` tensors (frozen leaves that clipping by norm counts) get
+    gradients from here on."""
     for t in getattr(optimizer, "counted", ()):
         t.requires_grad_(True)
     if capture is None:
         capture = supports_graphs(next(model.parameters()).device)
+    if capture and is_gloo(group):
+        raise ValueError("a gloo process group cannot be captured into a "
+                         "CUDA graph: pass capture=False for the eager step")
     if capture:
-        return CapturedTrainStep(model, optimizer, scheduler, graphs=graphs)
-    body = _step_body(model, optimizer, scheduler)
+        return CapturedTrainStep(model, optimizer, scheduler, graphs=graphs,
+                                 group=group)
+    body = _step_body(model, optimizer, scheduler, group)
 
     def step(images: torch.Tensor, gt: GroundTruth,
              draws: Optional[torch.Tensor] = None,

@@ -8,9 +8,10 @@ It builds the port's CUDA kernels from ``centermask2_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 V-39-eSE flagship (random weights from a seed) through the kernels, and
 times the kernels and the end-to-end latency; then it serves and trains
-the other backbone families and the person-keypoint model, and serves
+the other backbone families and the person-keypoint model, serves
 the flagship with the adaptive ROIAlign buckets and with deformable
-convs. Phases, in order:
+convs, and trains, serves and evaluates it data-parallel. Phases, in
+order:
 
 1. card:    the card's name and power limit (nvidia-smi).
 2. build:   nvcc of every kernel, in parallel; build seconds, and each
@@ -150,12 +151,35 @@ convs. Phases, in order:
             kernel 2b at s = 4 timed); the flagship with modulated DCN in
             stages 4-5 and the deformable FCOS towers: a request eager
             and captured, the replay equal to eager, 2 s windows.
-13. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+13. parallel: data parallelism (``parallel_phase``). A process group of
+            one over NCCL in this process: the flagship bf16 train step
+            through the data-parallel captured step (its all-reduce in
+            the graph; launches as in ``train``, one per replay by the
+            profiler, ms a step, images/s, peak memory, device time)
+            beside the one-process captured step; five f32 steps (TF32
+            off, deterministic cuDNN) bit-equal to the one-process
+            captured step's; the three kernels against their plain
+            versions on an eager data-parallel f32 step's inputs; the
+            SyncBN, BN and TPU.REMAT_BACKBONE variants captured (finite
+            losses, ms, peak memory); ``make_dp_inference`` of four bf16
+            800x1088 images against ``inference_batched`` slot by slot.
+            Then two gloo ranks on the card, processes of this script
+            (``--rank``, ``rank_main``) that load the built kernels: an
+            eager f32 data-parallel step of the flagship and of its
+            SyncBN variant (B = 1 a rank) through the kernels against the
+            same step through the plain versions, every gradient within
+            4x its noise floor, and the ranks' parameters and buffers
+            bit-equal after it; ``make_dp_inference`` of the four images
+            against the one-process result; ``evaluate_dataset(
+            distributed=True)`` over the 8-image synthetic set against
+            the one-process run, and the ground truth fed back through
+            the cross-rank merge at AP 100.
+14. result: a ``{"kernels": [...]}`` line whose launches sum the counts
             of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
-            ``train``, ``backbones`` and ``keypoints`` (the launch
-            functions' counts: eager launches and captures, not
-            replays), then the last line ``{"ok": true, "device":
-            {...}}``.
+            ``train``, ``backbones``, ``keypoints`` and ``parallel``'s
+            first part (the launch functions' counts: eager launches and
+            captures, not replays), then the last line ``{"ok": true,
+            "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -2171,13 +2195,15 @@ def make_train_batch(seed: int, batch: int, fixed: int, n_gt: int,
     return out
 
 
-def build_trainer(cfg, dev, state=None, capture=None, graphs=None):
+def build_trainer(cfg, dev, state=None, capture=None, graphs=None,
+                  group=None):
     """The flagship model, its optimizer and schedule and the train step
     (``train/trainer.py::make_train_step``: captured on CUDA unless
     ``capture`` is False), random weights from seed 0 with the
     classification bias at ``TRAIN_CLS_BIAS``, or ``state``'s
     parameters. ``graphs(model, opt, sched)``, if given, makes the
-    capturing object of a captured step."""
+    capturing object of a captured step; ``group``: the data-parallel
+    process group of the step."""
     from centermask2_tpu_torch.train import (make_optimizer_from_cfg,
                                              make_train_step)
 
@@ -2189,7 +2215,8 @@ def build_trainer(cfg, dev, state=None, capture=None, graphs=None):
     opt, sched = make_optimizer_from_cfg(model, cfg)
     if graphs is not None and capture is not False:
         capture, graphs = True, graphs(model, opt, sched)
-    step = make_train_step(model, opt, sched, capture=capture, graphs=graphs)
+    step = make_train_step(model, opt, sched, capture=capture, graphs=graphs,
+                           group=group)
     return model, opt, sched, step
 
 
@@ -2456,12 +2483,21 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
         with plain_kernels():
             runs["p1"] = step_grads(model, images, gt, draws)
             runs["p2"] = step_grads(model, images, gt, draws)
+    check_grad_runs(runs, "f32 train step")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def check_grad_runs(runs: dict, what: str) -> None:
+    """The rule of ``check_f32_step`` on ``runs``: "k1"/"k2" (losses,
+    gradients) of two runs through the kernels, "p1"/"p2" through the
+    plain versions."""
     (lk, gk), (lp, gp) = runs["k1"], runs["p1"]
     for name in lk:
         a, b = float(lk[name]), float(lp[name])
         if not abs(a - b) <= 1e-6 * abs(b):
-            raise AssertionError(f"f32 step {name}: kernels {a!r} plain {b!r}")
-    log("  f32 train step, kernels vs plain, losses: " + ", ".join(
+            raise AssertionError(f"{what} {name}: kernels {a!r} plain {b!r}")
+    log(f"  {what}, kernels vs plain, losses: " + ", ".join(
         f"{k} {float(lk[k]):.6f} (diff {float(lk[k] - lp[k]):.1e})"
         for k in lk))
     worst_ratio, worst_name, floors = 0.0, "", []
@@ -2474,9 +2510,9 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
                     if n.startswith(module))
         noise = max(float(gk[name].abs().max()), float(gp[name].abs().max()))
         if noise > ZERO_GRAD_REL * scale:
-            raise AssertionError(f"f32 step {name}: {noise:.3e}, above "
+            raise AssertionError(f"{what} {name}: {noise:.3e}, above "
                                  f"{ZERO_GRAD_REL} x {scale:.3e}")
-        log(f"  f32 train step, {name}: zero in exact arithmetic, "
+        log(f"  {what}, {name}: zero in exact arithmetic, "
             f"{noise:.3e} in both runs at most ({noise / scale:.1e} of its "
             f"module's largest gradient, tolerance {ZERO_GRAD_REL})")
     for name, g in gk.items():
@@ -2495,17 +2531,15 @@ def check_f32_step(cfg, dev, state, images, gt, draws, errs: dict) -> None:
         if ratio > worst_ratio:
             worst_ratio, worst_name = ratio, name
     if set(gk) != set(gp) or worst_ratio > GRAD_NOISE_FACTOR:
-        raise AssertionError(f"f32 step gradients: {worst_name} at "
+        raise AssertionError(f"{what} gradients: {worst_name} at "
                              f"{worst_ratio:.2f} x its noise floor")
-    log(f"  f32 train step, kernels vs plain: {len(gk)} parameter gradients, "
+    log(f"  {what}, kernels vs plain: {len(gk)} parameter gradients, "
         f"worst {worst_ratio:.2f} x its noise floor ({worst_name}); floors "
         f"{min(floors):.1e}-{max(floors):.1e} of each tensor's max "
         f"(tolerance {GRAD_NOISE_FACTOR} x); largest difference between the "
         f"two kernel runs {runs_diff['kernel']:.1e} (the floor's kernel-run "
         f"term; 0 = bit-equal), between the two plain runs "
         f"{runs_diff['plain']:.1e}")
-    del model, runs
-    torch.cuda.empty_cache()
 
 
 def profile_train_step(run, what: str = "bf16 train step"):
@@ -3393,6 +3427,590 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
     return launches, errs
 
 
+# -------------------------------------------------------------- parallel
+PARALLEL_TIMED = 6  # timed steps of each data-parallel variant
+DP_IMAGES = ((400, 800, 1088), (401, 800, 1088), (402, 800, 1088),
+             (403, 800, 1088))  # the data-parallel serving batch
+RANK_TIMEOUT_S = 600
+RANKS = 2  # the gloo ranks on the one card
+
+
+def free_cuda() -> None:
+    """Collect the dropped objects (a captured step in a reference cycle
+    keeps its graph's pool) and give the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rows_of(out, i: int):
+    """Slot ``i`` of a batched ``InferenceOutputs``, as a B = 1 output."""
+    return type(out)(*(None if v is None else v[i:i + 1] for v in out))
+
+
+def compare_batches(got, want, K: int, what: str) -> bool:
+    """Two batched outputs slot by slot (``compare_outputs`` for each
+    image); returns whether every output is bit-equal."""
+    for i in range(want.valid.shape[0]):
+        compare_outputs(rows_of(got, i), rows_of(want, i), K,
+                        f"{what}, image {i}")
+    return all(torch.equal(a, b) for a, b in zip(got, want)
+               if a is not None)
+
+
+def distributed_ground_truth_ap(ann: str) -> dict:
+    """``check_ground_truth_ap`` through the cross-rank merge: each rank
+    feeds back the ground truth of its strided share of the images,
+    every rank's records are gathered (``all_gather_objects``) and rank 0
+    scores them, AP 100.0 expected; other ranks return {}."""
+    from centermask2_tpu_torch.evaluation import COCOEvaluator, COCOGt, rle
+    from centermask2_tpu_torch.parallel import (all_gather_objects,
+                                                is_main_process,
+                                                process_subset)
+
+    with open(ann) as f:
+        gt = COCOGt(json.load(f))
+    cls = {c: i for i, c in enumerate(sorted(gt.cats))}
+    ev = COCOEvaluator(gt, category_id_map={i: c for c, i in cls.items()})
+    for img_id in process_subset(sorted(gt.imgs)):
+        a = [x for x in gt.img_to_anns[img_id] if not x["iscrowd"]]
+        xywh = np.array([x["bbox"] for x in a], np.float64)
+        ones = np.ones(len(a))
+        ev.process(img_id, {
+            "pred_boxes": np.concatenate([xywh[:, :2],
+                                          xywh[:, :2] + xywh[:, 2:]], 1),
+            "scores": ones, "mask_scores": ones,
+            "pred_classes": np.array([cls[x["category_id"]] for x in a]),
+            "pred_masks": np.stack([rle.decode(gt.ann_rle(x)) for x in a])})
+    ev.predictions = [p for ps in all_gather_objects(ev.predictions)
+                      for p in ps]
+    if not is_main_process():
+        return {}
+    res = ev.evaluate()
+    ap = {t: res[t]["AP"] for t in ("bbox", "segm")}
+    if any(abs(v - 100.0) > 1e-9 for v in ap.values()):
+        raise AssertionError(f"ground truth fed back over the ranks scores "
+                             f"{ap}")
+    return ap
+
+
+def state_hashes(model) -> dict:
+    """sha256 of every parameter and buffer's bytes (bit-equality of two
+    ranks' models without moving them)."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().view(-1)
+                              .view(torch.uint8).numpy()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def check_ranks_equal(model, what: str) -> int:
+    """Every rank's parameters and buffers bit-equal to rank 0's."""
+    from centermask2_tpu_torch.parallel import all_gather_objects
+
+    hashes = all_gather_objects(state_hashes(model))
+    bad = sorted(k for h in hashes[1:] for k in h if h[k] != hashes[0][k])
+    if bad:
+        raise AssertionError(f"{what}: the ranks differ in {len(bad)} "
+                             f"tensors, e.g. {bad[:3]}")
+    return len(hashes[0])
+
+
+def roi_align_feature_grad_f64(grad, boxes, batch_indices, levels, shapes,
+                               dtype, scales, output_size,
+                               sampling_ratio=2, aligned=True):
+    """Kernel 2b's plain version (``ops/roi_align.py::
+    roi_align_feature_grad_plain``) with its sums in float64, cast once:
+    the same function rounded another way."""
+    from centermask2_tpu_torch.ops import roi_align as R
+
+    lv = torch.clamp(levels.long(), 0, len(shapes) - 1)
+    scale_r = torch.full(lv.shape, float(scales[0]), device=boxes.device)
+    for i in range(1, len(shapes)):
+        scale_r = scale_r.masked_fill(lv == i, float(scales[i]))
+    ys, xs = R._axis_coords(boxes.float(), scale_r, output_size,
+                            sampling_ratio, aligned)
+    bidx = batch_indices.long()
+    out = []
+    for lvl, (N, C, H, W) in enumerate(shapes):
+        on_l = lv == lvl
+        ay = R._axis_pool_matrix(ys, H, output_size, sampling_ratio, on_l,
+                                 bidx * H, N * H).double()
+        ax = R._axis_pool_matrix(xs, W, output_size, sampling_ratio, on_l,
+                                 None, W).double()
+        tmp = torch.einsum("rjx,rcij->rcix", ax, grad.double())
+        d = torch.einsum("riy,rcix->cyx", ay, tmp)
+        out.append(d.reshape(C, N, H, W).transpose(0, 1).to(dtype)
+                   .contiguous())
+    return out
+
+
+def dp_f32_runs(cfg, dev, group, images, gt, draws) -> dict:
+    """One eager f32 data-parallel step (TF32 off, deterministic cuDNN)
+    through the kernels twice and the plain versions twice, each from the
+    same initial state: {"k1", "k2", "p1", "p2"} -> (losses, the averaged
+    gradients the update used), for ``check_grad_runs``, after one
+    discarded step (the process's first f32 step at this size picks some
+    cuDNN algorithms of its own: on the H100 its losses differed from
+    the later steps', which repeated bit for bit). "p2" sums kernel 2b's
+    plain version in float64 (``roi_align_feature_grad_f64``), so the
+    floor's plain term is what a rounding change of the ROIAlign
+    gradient alone moves each gradient by: train-mode SyncBN carries it
+    back through the backbone amplified (on the H100 kernel 2b against
+    its plain version moved one weight's gradient by 29x 1e-6 of its
+    largest, with two plain runs bit-equal). After "k1" every rank's model is held bit-equal to rank
+    0's; the kernels' launches of that step are returned under
+    "launches"."""
+    from centermask2_tpu_torch.ops.nms import greedy_keep_sorted_plain
+    from centermask2_tpu_torch.ops.roi_align import \
+        multilevel_roi_align_plain
+
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.train import (make_optimizer_from_cfg,
+                                             make_train_step)
+
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    runs = {}
+    with exact_f32(deterministic=True):
+        model = build_trainer(cfg32, dev, capture=False, group=group)[0]
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        for name in ("warm-up", "k1", "k2", "p1", "p2"):
+            model.load_state_dict(init)
+            opt, sched = make_optimizer_from_cfg(model, cfg32)
+            step = make_train_step(model, opt, sched, capture=False,
+                                   group=group)
+            ctx = plain_kernels() if name == "p1" else kernels_swapped(
+                greedy_keep_sorted_plain, multilevel_roi_align_plain,
+                roi_align_feature_grad_f64) if name == "p2" else \
+                contextlib.nullcontext()
+            _kernels.reset_launch_counts()
+            with ctx:
+                m = check_losses(step(images, gt, draws),
+                                 f"data-parallel f32 step {name}")
+            torch.cuda.synchronize()
+            if name == "warm-up":
+                continue
+            if name == "k1":
+                runs["launches"] = _kernels.launch_counts()
+                runs["tensors"] = check_ranks_equal(
+                    model, "data-parallel f32 step")
+            runs[name] = ({k: v for k, v in m.items() if k != "total_loss"},
+                          {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None})
+            del opt, sched, step
+    del model, init
+    free_cuda()
+    return runs
+
+
+def rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One of ``RANKS`` gloo ranks on the one card (``[parallel]``,
+    part 2): the eager f32 data-parallel step of the flagship and of its
+    SyncBN variant, kernels against plain versions and the ranks
+    bit-equal after it; ``make_dp_inference`` against the one-process
+    result the parent saved; ``evaluate_dataset(distributed=True)``
+    against the parent's one-process run, and the ground truth fed back
+    through the merge."""
+    sys.path.insert(0, REPO)
+    from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.parallel import (init_distributed,
+                                                local_rows, make_dp_inference,
+                                                shutdown)
+    from centermask2_tpu_torch.train import batch_to_device
+    from centermask2_tpu_torch.utils.comm import world_group
+
+    t0 = time.perf_counter()
+    _kernels.build()  # loads the parent's libraries
+    dev = torch.device("cuda:0")
+    init_distributed(f"127.0.0.1:{port}", RANKS, rank, device=dev,
+                     backend="gloo")
+    group = world_group()
+    main_rank = rank == 0
+    if not main_rank:  # rank 0 speaks for both; a failure still prints
+        sys.stdout = open(os.devnull, "w")
+    ref = torch.load(os.path.join(out_dir, "single.pt"), weights_only=False)
+    rows = local_rows(RANKS)
+
+    for norm in ("FrozenBN", "SyncBN"):
+        cfg = flagship_cfg()
+        cfg.MODEL.VOVNET.NORM = norm
+        batch = make_train_batch(500, RANKS, FIXED, TRAIN_GT,
+                                 cfg.TPU.MAX_GT_INSTANCES)
+        images, gt = batch_to_device(
+            {k: v[rows] for k, v in batch.items()}, dev)
+        draws = torch.rand((1, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN
+                            + cfg.TPU.MAX_GT_INSTANCES),
+                           generator=torch.Generator().manual_seed(9)).to(dev)
+        t1 = time.perf_counter()
+        runs = dp_f32_runs(cfg, dev, group, images, gt, draws)
+        if set(runs.pop("launches").values()) != {1}:
+            raise AssertionError(f"{norm} data-parallel step: launches")
+        n = runs.pop("tensors")
+        if main_rank:
+            check_grad_runs(runs, f"{RANKS}-rank gloo f32 {norm} step (the "
+                            f"second plain run with kernel 2b's plain "
+                            f"version summed in float64)")
+        log(f"  {RANKS} gloo ranks, flagship {norm} f32 step at {FIXED}x"
+            f"{FIXED}, B = 1 a rank: one launch of nms, roi_align and "
+            f"roi_align_backward a step; after it the ranks' {n} "
+            f"parameters and buffers bit-equal"
+            + (" (running statistics included)" if norm != "FrozenBN"
+               else "") + f"; five steps (one discarded) in "
+            f"{time.perf_counter() - t1:.1f} s (a correctness run: gloo "
+            f"stages each all-reduce through the host)")
+        del runs
+        free_cuda()
+
+    cfg = flagship_cfg()
+    model = build_model(cfg, dev)
+    K = cfg.MODEL.FCOS.POST_NMS_TOPK_TEST
+    imgs = torch.cat([make_image(s, H, W, dev) for s, H, W in DP_IMAGES])
+    got = make_dp_inference(model, group)(imgs)
+    same = compare_batches(got, ref["serve"], K,
+                           f"{RANKS}-rank make_dp_inference vs one process")
+    log(f"  {RANKS} gloo ranks, make_dp_inference of {len(DP_IMAGES)} bf16 "
+        f"{DP_IMAGES[0][1]}x{DP_IMAGES[0][2]} images ({len(DP_IMAGES) // RANKS}"
+        f" a rank, captured programs): every rank's gathered batch equals "
+        f"the one-process batch slot by slot, bit-equal {same}")
+
+    ann = ref["ann"]
+    res, _, ev = evaluate_dataset(
+        model, ann=ann, image_root=os.path.dirname(ann), fixed_size=FIXED,
+        min_size=SHORT, max_size=1333, progress_every=0, read_image=np.load,
+        distributed=True)
+    if main_rank:
+        preds = sorted(ev.predictions, key=lambda p: (p["image_id"],
+                                                      -p["score"]))
+        want = sorted(ref["eval_predictions"],
+                      key=lambda p: (p["image_id"], -p["score"]))
+        exact = preds == want
+        if not exact:
+            a = [(p["image_id"], p["category_id"]) for p in preds]
+            b = [(p["image_id"], p["category_id"]) for p in want]
+            if a != b or not np.allclose([p["score"] for p in preds],
+                                         [p["score"] for p in want],
+                                         rtol=1e-5, atol=1e-6):
+                raise AssertionError("distributed evaluation: rank 0's "
+                                     "predictions differ from one process")
+        if sorted(ev.proposals) != sorted(ref["eval_proposals"]):
+            raise AssertionError("distributed evaluation: proposals differ")
+        log(f"  {RANKS} gloo ranks, evaluate_dataset(distributed=True) over "
+            f"the {len(ev.proposals)}-image synthetic set: rank 0 holds the "
+            f"one-process run's {len(preds)} predictions (bit-equal {exact})"
+            f" and proposals of every image, bbox AP {res['bbox']['AP']:.4f}"
+            f" (one process {ref['eval_ap']:.4f})")
+    elif res != {}:
+        raise AssertionError("distributed evaluation: rank 1 scored")
+    ap = distributed_ground_truth_ap(ann)
+    log(f"  {RANKS} gloo ranks, the ground truth fed back through the "
+        f"cross-rank merge: AP bbox {ap.get('bbox', 0):.4f}, segm "
+        f"{ap.get('segm', 0):.4f}; rank {rank} done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutdown()
+    return 0
+
+
+def spawn_ranks(out_dir: str) -> float:
+    """``RANKS`` processes of this script, each a gloo rank on the card
+    (``rank_main``); their output is logged. Every process is stopped
+    whatever happens. Returns the seconds they took."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--port", str(port), "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.strip():
+                log(f"  [rank {r}] {line.strip()}")
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}")
+    return time.perf_counter() - t0
+
+
+def dp_train_variant(dev, cfg, group, runs, what: str, batch: int,
+                     card: str, timed: int = PARALLEL_TIMED, graphs=None):
+    """``runs`` (a ``TrainLoops``) through the data-parallel captured step
+    of ``cfg`` (or the one-process step with ``group`` None): finite
+    losses, the launch gate of ``[train]``, ms a step; returns (the step
+    and its objects, the median ms, the peak bytes). ``graphs``: as
+    ``build_trainer``'s."""
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
+
+    model, opt, sched, step = build_trainer(cfg, dev, capture=True,
+                                            graphs=graphs, group=group)
+    n_eager = WARMUP_STEPS + 1
+    ms, wall, peak = runs.run(step, n_eager + timed, n_eager, what, n_eager)
+    last = check_losses(runs.metrics[-1], f"{what} step {n_eager + timed}")
+    log_train_times(ms, wall, peak, n_eager + timed, n_eager, what, batch,
+                    card)
+    log(f"  {what}: losses finite, last total {last['total_loss']:.4f}; "
+        f"capture {step.capture_s:.3f} s after {WARMUP_STEPS} eager warm-up "
+        f"steps")
+    return (model, opt, sched, step), float(np.median(ms)), peak
+
+
+def dp_f32_equal(cfg, dev, group, steps_in, graphs=None) -> None:
+    """The f32 step (TF32 off, deterministic cuDNN) captured with the
+    process group of one against the one-process captured step over the
+    same inputs (``WARMUP_STEPS`` warm-ups on a side stream, the capture,
+    replays), each step from the one-process run's state before it
+    (written into the step's own tensors, as ``check_f32_captured_step``
+    does): losses and every parameter bit-equal after each step from the
+    capture on (the all-reduce of one rank and the division by 1 are
+    exact; the side-stream warm-ups are compared too, and their equality
+    printed). The one-process run is made twice; where its captured steps
+    do not repeat themselves bit for bit (the CPU rehearsal's fake
+    graphs), each difference is held within GRAD_NOISE_FACTOR x the two
+    one-process runs' own. On the card the three runs capture into one
+    memory pool (an f32 graph with TF32 off holds ~22 GiB of cuDNN
+    workspaces)."""
+    import torch.utils._pytree as pytree
+
+    from centermask2_tpu_torch.checkpoint.torch_io import (
+        restore_train_state, train_state)
+    from centermask2_tpu_torch.export.captured import (CudaGraphs,
+                                                       supports_graphs)
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
+
+    if graphs is None and supports_graphs(dev):
+        shared = CudaGraphs(dev)
+        graphs = lambda m, o, s: shared  # noqa: E731
+
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    res, before = {}, []
+    with exact_f32(deterministic=True):
+        for name, grp in (("one process", None), ("data-parallel", group),
+                          ("one process again", None)):
+            model, opt, sched, step = build_trainer(
+                cfg32, dev, capture=True, graphs=graphs, group=grp)
+            out = []
+            for i, (x, g, d) in enumerate(steps_in):
+                # a captured step adopts the tensors of its capturing
+                # call as its inputs, and a replay writes into them
+                args = (x.clone(), type(g)(*(None if t is None else t.clone()
+                                             for t in g)), d.clone())
+                if name == "one process":
+                    before.append(pytree.tree_map(
+                        lambda t: t.detach().clone() if torch.is_tensor(t)
+                        else t, train_state(model, opt, sched, i)))
+                else:
+                    restore_train_state(before[i], model, opt, sched)
+                m = check_losses(step(*args), f"f32 {name} step {i + 1}")
+                out.append((m, [p.detach().clone()
+                                for p in model.parameters()]))
+            res[name] = out
+            del model, opt, sched, step, out
+            free_cuda()
+            log(f"  f32 {name} run: {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+                f" GiB reserved after it")
+    del before
+    bit = repeat = warm = True
+    for i, ((l1, p1), (l2, p2), (l3, p3)) in enumerate(zip(
+            res["one process"], res["data-parallel"],
+            res["one process again"])):
+        same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+        if i < WARMUP_STEPS:
+            warm = warm and same
+            continue
+        repeat = repeat and l1 == l3 and all(
+            torch.equal(a, c) for a, c in zip(p1, p3))
+        bit = bit and same
+        for a, b, c in zip(p1, p2, p3):
+            floor = GRAD_NOISE_FACTOR * float((a - c).abs().max())
+            if float((a - b).abs().max()) > floor:
+                raise AssertionError(
+                    f"f32 data-parallel step {i + 1} differs from the "
+                    f"one-process step beyond the one-process runs' own "
+                    f"difference: {l2} vs {l1}")
+    if repeat and not bit:
+        raise AssertionError("f32 data-parallel steps not bit-equal to the "
+                             "one-process steps, which repeat bit for bit")
+    log(f"  f32 steps (TF32 off, deterministic cuDNN), captured with the "
+        f"process group of one against the one-process captured step, each "
+        f"from the one-process run's state before it: the capture and "
+        f"{len(steps_in) - WARMUP_STEPS - 1} replays, losses and all "
+        f"{len(res['one process'][0][1])} parameters after each bit-equal "
+        f"{bit} (the one-process captured steps repeat themselves bit for "
+        f"bit: {repeat}); the {WARMUP_STEPS} side-stream warm-up steps "
+        f"bit-equal {warm}; total {res['one process'][-1][0]['total_loss']:.6f}")
+
+
+def parallel_phase(dev, cfg=None, batch: int = TRAIN_BATCH,
+                   fixed: int = FIXED, n_gt: int = TRAIN_GT,
+                   timed: int = PARALLEL_TIMED, sides=(16, 600),
+                   dp_images=DP_IMAGES, ranks: bool = True,
+                   timing: bool = True, graphs=None):
+    """The ``[parallel]`` phase. Part 1, a process group of one over NCCL
+    in this process: the flagship bf16 train step through the
+    data-parallel captured step (the all-reduce in the graph) beside the
+    one-process captured step, the profiler's launches of a replay and
+    its device time; the f32 steps bit-equal to the one-process ones; the
+    kernels against their plain versions on an eager data-parallel f32
+    step's inputs; the SyncBN, BN and ``TPU.REMAT_BACKBONE`` variants;
+    ``make_dp_inference`` of a bf16 batch against ``inference_batched``.
+    Part 2 (``ranks``): ``RANKS`` gloo ranks on the card
+    (``rank_main``). ``timing`` off leaves out the profiler's reads;
+    ``graphs``: the capturing object's maker, as ``build_trainer``'s (a
+    CPU rehearsal passes fakes). Returns (launches by kernel over part
+    1's main-path runs, the worst kernel/plain errors)."""
+    import tempfile
+
+    from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+    from centermask2_tpu_torch.export.captured import (WARMUP_CALLS,
+                                                       supports_graphs)
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.parallel import (init_distributed,
+                                                make_dp_inference, shutdown)
+    from centermask2_tpu_torch.train import batch_to_device
+    from centermask2_tpu_torch.train.trainer import WARMUP_STEPS
+    from centermask2_tpu_torch.utils.comm import world_group
+
+    dev = torch.device(dev)
+    cfg = flagship_cfg() if cfg is None else cfg
+    card = card_line()
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    group = world_group()
+    errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    max_gt = cfg.TPU.MAX_GT_INSTANCES
+    batches = [make_train_batch(600 + i, batch, fixed, n_gt, max_gt,
+                                sides=sides) for i in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs = TrainLoops(batches, dev, gen)
+    images, gt = batch_to_device(batches[0], dev)
+    draws = torch.rand((batch, cfg.MODEL.FCOS.POST_NMS_TOPK_TRAIN + max_gt),
+                       generator=gen, device=dev)
+
+    objs, dp_ms, dp_peak = dp_train_variant(
+        dev, cfg, group, runs, "data-parallel captured (world 1)",
+        batch, card, timed, graphs)
+    step = objs[3]
+    if timing:
+        replay_launches(lambda: step(images, gt, draws), 3,
+                        ("nms", "roi_align", "roi_align_backward"),
+                        "data-parallel train step replays")
+        profile_train_step(lambda: step(images, gt, draws),
+                           "data-parallel bf16 train step, a replay")
+    del objs, step
+    free_cuda()
+    objs, one_ms, one_peak = dp_train_variant(
+        dev, cfg, None, runs, "one-process captured, beside it", batch,
+        card, timed, graphs)
+    del objs
+    free_cuda()
+    log(f"  data-parallel step (world 1) against the one-process step: "
+        f"{dp_ms:.3f} vs {one_ms:.3f} ms median ({dp_ms - one_ms:+.3f} ms: "
+        f"the flat gradient buffer's copies and the all-reduce), peak "
+        f"{dp_peak / 2 ** 30:.3f} vs {one_peak / 2 ** 30:.3f} GiB ({card})")
+
+    steps_in = []  # the warm-ups, the capture and two replays
+    for i in range(WARMUP_STEPS + 3):
+        x, g = batch_to_device(batches[i % 2], dev)
+        steps_in.append((x, g, torch.rand(draws.shape, generator=gen,
+                                          device=dev)))
+    dp_f32_equal(cfg, dev, group, steps_in, graphs)
+    del steps_in
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    with exact_f32(deterministic=True):
+        model, _, _, estep = build_trainer(cfg32, dev, capture=False,
+                                           group=group)
+        seen = capture_step_inputs(lambda: estep(images, gt, draws))
+        check_step_kernels(seen, "data-parallel f32 step", errs)
+    del seen, model, estep
+    free_cuda()
+    log(f"  after the f32 checks: {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+        f" GiB reserved")
+
+    for what, change in (("SyncBN", ("MODEL.VOVNET.NORM", "SyncBN")),
+                         ("BN", ("MODEL.VOVNET.NORM", "BN")),
+                         ("TPU.REMAT_BACKBONE", ("TPU.REMAT_BACKBONE",
+                                                 True))):
+        c = cfg.clone()
+        c.merge_from_list(list(change))
+        objs, ms, peak = dp_train_variant(
+            dev, c, group, runs, f"data-parallel captured, {what}", batch,
+            card, timed, graphs)
+        del objs
+        free_cuda()
+        log(f"  {what} against the FrozenBN flagship, both data-parallel: "
+            f"{ms:.3f} vs {dp_ms:.3f} ms median, peak {peak / 2 ** 30:.3f} "
+            f"vs {dp_peak / 2 ** 30:.3f} GiB ({card})")
+    totals = dict(runs.totals)
+
+    serve_cfg = cfg.clone()
+    serve_cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_model(serve_cfg, dev)
+    K = cfg.MODEL.FCOS.POST_NMS_TOPK_TEST
+    imgs = torch.cat([make_image(s, H, W, dev) for s, H, W in dp_images])
+    want = model.inference_batched(imgs)
+    _kernels.reset_launch_counts()
+    captured = supports_graphs(dev)
+    got = make_dp_inference(model, group)(imgs)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    n_want = WARMUP_CALLS + 1 if captured else len(dp_images)
+    if (counts["nms"], counts["roi_align"]) != (n_want, n_want):
+        raise AssertionError(f"make_dp_inference launches {counts}")
+    for k in ("nms", "roi_align"):
+        totals[k] += counts[k]
+    same = compare_batches(got, want, K, "make_dp_inference vs "
+                           "inference_batched")
+    log(f"  make_dp_inference (world 1) of {len(dp_images)} bf16 "
+        f"{dp_images[0][1]}x{dp_images[0][2]} images "
+        + (f"through one captured program ({n_want} launches of kernels 1 "
+           f"and 2 at its warm-up and capture, none at the replays)"
+           if captured else "eagerly") + f" against inference_batched: "
+        f"equal slot by slot, bit-equal {same}")
+    shutdown()
+    log(f"  part 1 (a process group of one) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ranks:
+        return totals, errs
+
+    with tempfile.TemporaryDirectory() as root:
+        ann = make_coco_dataset(root)
+        res, _, ev = evaluate_dataset(
+            model, ann=ann, image_root=root, fixed_size=FIXED,
+            min_size=SHORT, max_size=1333, progress_every=0,
+            read_image=np.load)
+        torch.save({"serve": want, "ann": ann,
+                    "eval_predictions": ev.predictions,
+                    "eval_proposals": list(ev.proposals),
+                    "eval_ap": res["bbox"]["AP"]},
+                   os.path.join(root, "single.pt"))
+        del model, want, got, ev
+        gc.collect()
+        free_cuda()
+        secs = spawn_ranks(root)
+    log(f"  part 2 ({RANKS} gloo ranks on the card) took {secs:.1f} s, "
+        f"spawn to exit")
+    return totals, errs
+
+
 def flagship_phases(dev, nms_err: int, roi_err: float):
     """``[serve]``, ``[time]``, ``[graphs]``, ``[serving]``, ``[eval]``,
     ``[export]`` and ``[train]``: the V-39 flagship and its serving
@@ -3514,13 +4132,18 @@ def main() -> int:
         "(seed 0): served, evaluated by OKS and trained; the flagship with "
         f"the adaptive ROIAlign buckets and with deformable convs ({card})")
     kp_launches, kp_errs = keypoints_phase(dev)
+    log(f"[parallel] data parallelism: the flagship at full width through "
+        f"a process group of one over NCCL (the train step captured with its "
+        f"all-reduce, SyncBN, BN, TPU.REMAT_BACKBONE, make_dp_inference), "
+        f"then {RANKS} gloo ranks on the card ({card})")
+    dp_launches, dp_errs = parallel_phase(dev)
     for row in (nms, roi, bwd):
         row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]],
-                                 kp_errs[row["name"]])
+                                 kp_errs[row["name"]], dp_errs[row["name"]])
 
     for row in (nms, roi, bwd):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
-            *v39_launches, bb_launches, kp_launches))
+            *v39_launches, bb_launches, kp_launches, dp_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
@@ -3534,4 +4157,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:  # one gloo rank of [parallel] (spawn_ranks)
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--rank", type=int, required=True)
+        ap.add_argument("--port", type=int, required=True)
+        ap.add_argument("--out", required=True)
+        a = ap.parse_args()
+        sys.exit(rank_main(a.rank, a.port, a.out))
     sys.exit(main())

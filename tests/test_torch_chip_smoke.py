@@ -484,3 +484,46 @@ def test_keypoints_phase_rehearsal(rehearsal, capsys):
     assert "f32 train step, roi_heads.keypoint_head.score_lowres.bias: " \
         "zero in exact arithmetic" in out
     assert "f32 train step, kernels vs plain: " in out
+
+
+def test_parallel_phase_rehearsal(rehearsal, capsys, monkeypatch):
+    """``[parallel]``'s first part at 64x64 with a narrow f32 model, the
+    process group of one over gloo (the card's is NCCL; the fakes stand
+    for the CUDA graphs, which a gloo group refuses, so the rehearsal lets
+    it through): the data-parallel captured step beside the one-process
+    one, the f32 steps bit-equal to them, the kernels on an eager
+    data-parallel step's inputs, the SyncBN, BN and remat variants, and
+    ``make_dp_inference`` against ``inference_batched``. The gloo ranks
+    of the second part run only on the card."""
+    from test_torch_captured import FakeGraphs, _state
+
+    from centermask2_tpu_torch.train import trainer
+
+    monkeypatch.setattr(trainer, "is_gloo", lambda group: False)
+    cfg = _tiny_cfg(chip_smoke.flagship_cfg())
+    cfg.merge_from_list([
+        "TPU.NMS_CANDIDATES", "50", "MODEL.FCOS.PRE_NMS_TOPK_TRAIN", "50",
+        "MODEL.FCOS.POST_NMS_TOPK_TRAIN", "20",
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "32",
+        "TPU.MAX_FG_PROPOSALS", "8", "TPU.MAX_GT_INSTANCES", "8"])
+    launches, errs = chip_smoke.parallel_phase(
+        torch.device("cpu"), cfg, batch=2, fixed=64, n_gt=3, timed=1,
+        sides=(8, 40), dp_images=((400, 64, 64), (401, 64, 64)),
+        ranks=False, timing=False,
+        graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)))
+    # five captured loops of 3 warm-up steps, the capture and a replay: 4
+    # launches each; two eager requests
+    assert launches == {"nms": 22, "roi_align": 22, "roi_align_backward": 20}
+    assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
+    out = capsys.readouterr().out
+    assert "captured with the process group of one against the " \
+        "one-process captured step, each from the one-process run's " \
+        "state before it: the capture and 2 replays, losses and all" in out
+    for what in ("SyncBN", "BN", "TPU.REMAT_BACKBONE"):
+        assert f"data-parallel captured, {what}: losses finite" in out
+    assert "nms data-parallel f32 step: N=" in out
+    assert "against inference_batched: equal slot by slot, bit-equal " \
+        "True" in out
+    from centermask2_tpu_torch.parallel import process_count
+
+    assert process_count() == 1  # the group was left

@@ -153,8 +153,9 @@ def test_get_norm():
     assert isinstance(T.get_norm("FrozenBN", 4), T.FrozenBatchNorm)
     assert isinstance(T.get_norm("GN", 32), T.GroupNorm)
     assert T.get_norm("", 4) is None
-    with pytest.raises(NotImplementedError):
-        T.get_norm("BN", 4)
+    bn, sync = T.get_norm("BN", 4), T.get_norm("SyncBN", 4)
+    assert isinstance(bn, T.BatchNorm) and not bn.sync
+    assert isinstance(sync, T.BatchNorm) and sync.sync
     with pytest.raises(ValueError):
         T.get_norm("LayerNorm", 4)
 

@@ -178,8 +178,6 @@ def test_build_on_cpu_runs_bf16_inference():
     ["TPU.APPROX_TOPK", True],
     ["MODEL.BACKBONE.NAME", "build_fcos_resnet_fpn_backbone",
      "MODEL.RESNETS.RES5_DILATION", 2],
-    ["TPU.REMAT_BACKBONE", True], ["MODEL.VOVNET.NORM", "BN"],
-    ["MODEL.VOVNET.NORM", "SyncBN"], ["MODEL.ROI_MASK_HEAD.NORM", "BN"],
     ["MODEL.VOVNET.STAGE_WITH_DCN", "(False, False, True, True)",
      "MODEL.VOVNET.DEFORMABLE_GROUPS", 2],
     ["MODEL.VOVNET.STAGE_WITH_DCN", "(False, False, False, True)",
@@ -187,10 +185,9 @@ def test_build_on_cpu_runs_bf16_inference():
      "MODEL.VOVNET.DEFORMABLE_GROUPS", 4]],
     ids=lambda opts: "-".join(map(str, opts)))
 def test_unported_options_raise(opts):
-    """What the port refuses: the TPU's approximate top-k, the options of
-    ROADMAP queue 1 ('Data parallelism', 'Leftovers of done items'), and
-    the two options the JAX reference cannot run (RES5_DILATION 2, more
-    than one deformable group)."""
+    """What the port refuses: the TPU's approximate top-k and the two
+    options the JAX reference cannot run (RES5_DILATION 2, more than one
+    deformable group)."""
     cfg = _small_cfg()
     cfg.merge_from_list([str(v) for v in opts])
     with pytest.raises(NotImplementedError):
@@ -201,13 +198,16 @@ def test_unported_options_raise(opts):
     ["TPU.POOLER_SAMPLING_RATIO", 0], ["MODEL.KEYPOINT_ON", True],
     ["MODEL.FCOS.USE_DEFORMABLE", True],
     ["MODEL.VOVNET.STAGE_WITH_DCN", "(False, True, False, True)",
-     "MODEL.VOVNET.WITH_MODULATED_DCN", True]],
+     "MODEL.VOVNET.WITH_MODULATED_DCN", True],
+    ["TPU.REMAT_BACKBONE", True], ["MODEL.VOVNET.NORM", "BN"],
+    ["MODEL.VOVNET.NORM", "SyncBN"], ["MODEL.ROI_MASK_HEAD.NORM", "BN"]],
     ids=lambda opts: "-".join(map(str, opts)))
 def test_once_refused_options_build_and_serve(opts):
-    """The options the port refused until the keypoint slice build and
-    serve a 64x64 request with finite outputs (their parity with JAX:
-    ``test_torch_keypoints.py``, ``test_torch_deform.py`` and
-    ``test_torch_roi_align.py``)."""
+    """The options the port refused until the keypoint and the data
+    parallel slices build and serve a 64x64 request with finite outputs
+    (their parity with JAX: ``test_torch_keypoints.py``,
+    ``test_torch_deform.py``, ``test_torch_roi_align.py``,
+    ``test_torch_batchnorm.py`` and ``test_torch_parallel.py``)."""
     cfg = _small_cfg()
     cfg.merge_from_list([str(v) for v in opts])
     model = build_centermask(cfg, device="cpu")
