@@ -94,6 +94,16 @@ def state_dict_from_jax(params: Mapping[str, Any],
     return out
 
 
+def params_entries(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The entries of ``model.state_dict()`` that map from flax's
+    ``params`` collection: every JAX leaf but a BatchNorm's running
+    statistics (``.../bn/mean``, ``.../bn/var``, flax's ``batch_stats``).
+    FrozenBN's ``frozen_scale``/``frozen_bias`` are parameters in JAX,
+    buffers here, and count."""
+    return {k: v for k, v in model.state_dict().items()
+            if not k.endswith((".bn.mean", ".bn.var"))}
+
+
 def load_jax_params(model: nn.Module, params: Mapping[str, Any],
                     maskiou_resolution: int = 7,
                     batch_stats: Optional[Mapping[str, Any]] = None) -> None:

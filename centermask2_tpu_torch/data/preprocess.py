@@ -10,15 +10,26 @@ reference pipeline (reference: deploy_utils.py:19-21, 60-98):
   RAW uint8 image over the quantized tight canvas, normalized on the
   device (``CenterMask._normalize_u8_s2d``).
 
-numpy only. PIL is imported by the two functions that read or resize
-an image, so a caller that feeds arrays needs no PIL.
+The s2d passes (``s2d_preprocess``, ``s2d_pack_u8``, ``s2d_pack_u8_tight``)
+run the fused normalize, pad and factor-4 space-to-depth of
+``native/s2d.cpp`` in one pass: built with ``g++`` at first use into
+``centermask2_tpu_torch/_build/`` (``utils/native.py``; a failed build
+raises) and bit-equal to their plain numpy versions
+(``s2d_preprocess_plain``, ``s2d_pack_u8_plain``), which the tests hold
+it against. PIL is imported by the two functions that read or resize an
+image, so a caller that feeds arrays needs no PIL.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+
+from ..utils.native import BUILD_ROOT, build_library
 
 MIN_EDGE_SIZE = 800
 MAX_EDGE_SIZE = 1333
@@ -26,6 +37,13 @@ FIXED_EDGE_SIZE = 1344
 
 PIXEL_MEAN = np.array([103.53, 116.28, 123.675], np.float32)  # BGR
 PIXEL_STD = np.array([1.0, 1.0, 1.0], np.float32)
+
+_S2D_SRC = Path(__file__).resolve().parent / "native" / "s2d.cpp"
+_S2D_BUILD_ROOT = BUILD_ROOT
+_S2D_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+              "-std=c++17"]
+_S2D_LIB = None
+_S2D_LOCK = threading.Lock()
 
 
 def compute_resize_shape(
@@ -104,30 +122,73 @@ def stem_space_to_depth(images_nhwc: np.ndarray) -> np.ndarray:
     return out.reshape(B, Ho, Wo, 16 * C)
 
 
-def s2d_preprocess(image_hwc: np.ndarray,
-                   fixed_size: int = FIXED_EDGE_SIZE) -> np.ndarray:
-    """Normalize + pad-to-canvas + space-to-depth for ONE resized image
-    (uint8 or float32 HWC BGR): the (1, F/4+1, F/4+1, 48) f32 network
-    input, equal to the JAX package's fused native pass."""
+def _s2d_lib() -> ctypes.CDLL:
+    """Build (once) and load the fused native pass; raises if g++ fails."""
+    global _S2D_LIB
+    with _S2D_LOCK:
+        if _S2D_LIB is None:
+            lib = ctypes.CDLL(str(build_library(
+                _S2D_SRC, _S2D_FLAGS, _S2D_BUILD_ROOT, "s2d")))
+            i64 = ctypes.c_int64
+            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.s2d_preprocess_u8.restype = None
+            lib.s2d_preprocess_u8.argtypes = [u8p, i64, i64, i64, i64, f32p,
+                                              f32p]
+            lib.s2d_preprocess_f32.restype = None
+            lib.s2d_preprocess_f32.argtypes = [f32p, i64, i64, i64, i64, f32p,
+                                               f32p]
+            lib.s2d_pack_u8_rect.restype = None
+            lib.s2d_pack_u8_rect.argtypes = [u8p, i64, i64, i64, i64, i64,
+                                             u8p]
+            _S2D_LIB = lib
+    return _S2D_LIB
+
+
+def _check_s2d_preprocess(image_hwc: np.ndarray, fixed_size: int) -> None:
     h, w, C = image_hwc.shape
     if h > fixed_size or w > fixed_size:
         raise ValueError(
             f"resized image ({h}x{w}) exceeds the padded canvas "
             f"{fixed_size}x{fixed_size}")
-    if C > 16:
+    if C > 16:  # the native pass's per-phase mean buffer holds 4*C floats
         raise ValueError(f"s2d_preprocess supports C <= 16 channels, got {C}")
-    assert fixed_size % 4 == 0, fixed_size
+    if fixed_size % 4:
+        raise ValueError(f"s2d canvas must be divisible by 4, got "
+                         f"{fixed_size}")
+
+
+def s2d_preprocess_plain(image_hwc: np.ndarray,
+                         fixed_size: int = FIXED_EDGE_SIZE) -> np.ndarray:
+    """``s2d_preprocess`` in numpy: normalize, pad, then
+    ``stem_space_to_depth`` (the plain version of the native pass)."""
+    _check_s2d_preprocess(image_hwc, fixed_size)
     return stem_space_to_depth(
         single_preprocessing(image_hwc, fixed_size)[None])
 
 
-def s2d_pack_u8(image_hwc: np.ndarray,
-                fixed_size=FIXED_EDGE_SIZE) -> np.ndarray:
-    """Pad + space-to-depth ONE resized uint8 image WITHOUT normalizing:
-    the (1, Fh/4+1, Fw/4+1, 48) uint8 network input for the on-device
-    normalization path (``CenterMask._normalize_u8_s2d``), a quarter of
-    the f32 canvas's bytes. ``fixed_size``: the canvas, an int (square)
-    or an (Fh, Fw) pair (rectangular, see s2d_pack_u8_tight)."""
+def s2d_preprocess(image_hwc: np.ndarray,
+                   fixed_size: int = FIXED_EDGE_SIZE) -> np.ndarray:
+    """Normalize + pad-to-canvas + space-to-depth for ONE resized image
+    (uint8 or float32 HWC BGR) in one native pass: the (1, F/4+1, F/4+1,
+    16C) f32 network input, bit-equal to ``s2d_preprocess_plain``."""
+    _check_s2d_preprocess(image_hwc, fixed_size)
+    h, w, C = image_hwc.shape
+    Ho = fixed_size // 4 + 1
+    out = np.empty((Ho, Ho, 16 * C), np.float32)
+    mean = np.ascontiguousarray(PIXEL_MEAN[:C], np.float32)
+    if image_hwc.dtype == np.uint8:
+        _s2d_lib().s2d_preprocess_u8(np.ascontiguousarray(image_hwc), h, w,
+                                     C, fixed_size, mean, out)
+    else:
+        _s2d_lib().s2d_preprocess_f32(
+            np.ascontiguousarray(image_hwc, np.float32), h, w, C, fixed_size,
+            mean, out)
+    return out[None]
+
+
+def _u8_canvas(image_hwc: np.ndarray, fixed_size) -> Tuple[int, int]:
+    """The (Fh, Fw) canvas of an s2d uint8 pack, checked."""
     h, w, C = image_hwc.shape
     # np.ndim == 0 also catches numpy scalar ints (np.isscalar does not)
     fh, fw = ((int(fixed_size),) * 2 if np.ndim(fixed_size) == 0
@@ -141,9 +202,34 @@ def s2d_pack_u8(image_hwc: np.ndarray,
         raise ValueError(
             f"s2d canvas must be divisible by 4, got {fh}x{fw} (check "
             "TPU.FIXED_EDGE_SIZE / TPU.SIZE_BUCKETS)")
+    return fh, fw
+
+
+def s2d_pack_u8_plain(image_hwc: np.ndarray,
+                      fixed_size=FIXED_EDGE_SIZE) -> np.ndarray:
+    """``s2d_pack_u8`` in numpy: pad into the canvas, then
+    ``stem_space_to_depth`` (the plain version of the native pass)."""
+    fh, fw = _u8_canvas(image_hwc, fixed_size)
+    h, w, C = image_hwc.shape
     canvas = np.zeros((fh, fw, C), np.uint8)
     canvas[:h, :w] = np.asarray(image_hwc, np.uint8)
     return stem_space_to_depth(canvas[None])
+
+
+def s2d_pack_u8(image_hwc: np.ndarray,
+                fixed_size=FIXED_EDGE_SIZE) -> np.ndarray:
+    """Pad + space-to-depth ONE resized uint8 image WITHOUT normalizing,
+    in one native pass: the (1, Fh/4+1, Fw/4+1, 16C) uint8 network input
+    for the on-device normalization path (``CenterMask._normalize_u8_s2d``),
+    a quarter of the f32 canvas's bytes; bit-equal to
+    ``s2d_pack_u8_plain``. ``fixed_size``: the canvas, an int (square) or
+    an (Fh, Fw) pair (rectangular, see s2d_pack_u8_tight)."""
+    fh, fw = _u8_canvas(image_hwc, fixed_size)
+    h, w, C = image_hwc.shape
+    out = np.empty((fh // 4 + 1, fw // 4 + 1, 16 * C), np.uint8)
+    _s2d_lib().s2d_pack_u8_rect(np.ascontiguousarray(image_hwc, np.uint8),
+                                h, w, C, fh, fw, out)
+    return out[None]
 
 
 def s2d_pack_u8_tight(image_hwc: np.ndarray,

@@ -2,71 +2,34 @@
 copy of ``centermask2_tpu/evaluation/rle.py``.
 
 ``native/maskapi.cpp`` is compiled with ``g++`` at first use into
-``centermask2_tpu_torch/_build/maskapi-<hash>/libmaskapi.so`` (keyed by
-the hash of the source and flags; ``.gitignore`` lists ``_build/``).
-Processes that build it at once (pytest-xdist workers, several
-processes sharing a checkout) serialize on an fcntl lock, and the
-compiler writes a temporary file that is renamed into place, so no
-process loads half a library. A failed build raises. The helpers are
-pycocotools-mask compatible: encode / decode / area / iou / merge and
-the compressed "counts" string codec.
+``centermask2_tpu_torch/_build/maskapi-<hash>/libmaskapi.so`` by
+``utils/native.py::build_library`` (under a lock; a failed build
+raises). The helpers are pycocotools-mask compatible: encode / decode /
+area / iou / merge and the compressed "counts" string codec.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
+from ..utils.native import BUILD_ROOT, build_library
+
 _LIB = None
 _LOCK = threading.Lock()
 
 _SRC = Path(__file__).resolve().parent / "native" / "maskapi.cpp"
-_BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+_BUILD_ROOT = BUILD_ROOT
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
-
-
-def _so_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    return _BUILD_ROOT / f"maskapi-{h.hexdigest()[:16]}" / "libmaskapi.so"
 
 
 def _build() -> Path:
     """Compile the library unless it exists; raises if g++ fails."""
-    import fcntl
-
-    so = _so_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    with open(so.parent / "build.lock", "a+") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        try:
-            if so.exists():  # another process finished it meanwhile
-                return so
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-            os.close(fd)
-            try:
-                res = subprocess.run(["g++", *_FLAGS, "-o", tmp, str(_SRC)],
-                                     capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(f"g++ failed to build {_SRC}:\n"
-                                       f"{res.stderr}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        finally:
-            fcntl.flock(lockf, fcntl.LOCK_UN)
-    return so
+    return build_library(_SRC, _FLAGS, _BUILD_ROOT, "maskapi")
 
 
 def _lib() -> ctypes.CDLL:

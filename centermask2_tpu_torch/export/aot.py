@@ -26,10 +26,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 from torch import nn
-from torch.utils.flop_counter import FlopCounterMode
 
 from .. import ops  # noqa: F401  (registers the cm2:: operators)
 from ..models.meta import InferenceOutputs
+from ..utils.measures import count_flops
 from .captured import CapturedInference
 
 if InferenceOutputs not in pytree.SUPPORTED_NODES:
@@ -93,23 +93,13 @@ def load_serialized(path: str) -> Callable:
 def inference_flops(model, input_shape: Tuple[int, ...], *,
                     input_dtype: torch.dtype = torch.float32,
                     canvas_hw: Optional[Tuple[int, int]] = None) -> int:
-    """FLOPs of one call, counted by ``FlopCounterMode`` over one run:
-    the convolutions and matrix products (two per multiply-add), which
-    is where XLA's count of the JAX program also lies."""
+    """FLOPs of one call, counted by ``utils/measures.py::count_flops``
+    over one run: the convolutions and matrix products (two per
+    multiply-add), which is where XLA's count of the JAX program also
+    lies."""
     x, *hw = _example_inputs(model, input_shape, input_dtype)
-    # the counter's module tracker hooks every module output that requires
-    # grad, and a view of a parameter (GroupNorm's bias over a group of
-    # one value) does even under no_grad
-    tracked = [p for p in model.parameters() if p.requires_grad]
-    for p in tracked:
-        p.requires_grad_(False)
-    try:
-        with FlopCounterMode(display=False) as counter:
-            model.inference(x, None, hw[0] if hw else None, canvas_hw)
-    finally:
-        for p in tracked:
-            p.requires_grad_(True)
-    return int(counter.get_total_flops())
+    return count_flops(model, model.inference, x, None,
+                       hw[0] if hw else None, canvas_hw)
 
 
 def compile_inference(model, input_shape: Tuple[int, ...], *,

@@ -4,7 +4,7 @@
 
     python -m centermask2_tpu_torch.tools.export_model \\
         --config-file configs/centermask/zy_model_serving.yaml \\
-        --out centermask2.pt2 [--weights model.pth] [--batch 1] \\
+        --out centermask2.pt2 [--weights model.pth|converted_dir] [--batch 1] \\
         [--serving-u8 [--tight {landscape,portrait} [--tight-compute]]] \\
         [--device cpu] [KEY VALUE ...]
 
@@ -32,7 +32,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config-file", default=None)
     p.add_argument("--weights", default=None,
-                   help="a reference-schema .pth checkpoint")
+                   help="a reference-schema .pth checkpoint or a converted "
+                        "checkpoint directory (tools/convert_weights.py)")
     p.add_argument("--out", required=True)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--serving-u8", action="store_true",
@@ -55,11 +56,11 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     import torch
 
+    from ..checkpoint.weights import load_weights
     from ..config import get_cfg
     from ..data.preprocess import s2d_serving_canvas
     from ..export import export_serialized, inference_flops
     from ..models.meta import build_centermask
-    from .infer import load_weights
 
     cfg = get_cfg()
     if args.config_file:

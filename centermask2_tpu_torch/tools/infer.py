@@ -4,7 +4,7 @@ counterpart of the repository's ``tools/infer.py``).
     python -m centermask2_tpu_torch.tools.infer \\
         --config-file configs/centermask/zy_model_serving.yaml \\
         --ann instances_val2017.json --image-root val2017 \\
-        [--weights model.pth] [--limit N] [--tight-compute] \\
+        [--weights model.pth|converted_dir] [--limit N] [--tight-compute] \\
         [--data-parallel --batch-size B] [--device cpu|cuda:N] \\
         [--output-dir out] [KEY VALUE ...]
 
@@ -46,7 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--ann", required=True, help="COCO annotations json")
     p.add_argument("--image-root", required=True)
     p.add_argument("--weights", default=None,
-                   help="a reference-schema .pth checkpoint")
+                   help="a reference-schema .pth checkpoint or a converted "
+                        "checkpoint directory (tools/convert_weights.py)")
     p.add_argument("--limit", type=int, default=0)
     p.add_argument("--batch-size", type=int, default=1,
                    help="requests in flight (the pipeline depth, at least "
@@ -65,30 +66,6 @@ def parse_args(argv=None):
                    help="cuda (default), cuda:N or cpu; no fallback")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
-
-
-def load_weights(model, cfg, path: str) -> None:
-    """Convert a reference .pth and load it with ``strict=True``."""
-    from ..checkpoint.convert_torch import (convert_checkpoint,
-                                            load_torch_checkpoint)
-    from ..checkpoint.from_jax import load_jax_params
-    from ..models.meta import backbone_type
-
-    tree, report = convert_checkpoint(
-        load_torch_checkpoint(path), conv_body=cfg.MODEL.VOVNET.CONV_BODY,
-        backbone=backbone_type(cfg), resnet_depth=cfg.MODEL.RESNETS.DEPTH,
-        fcos_norm=cfg.MODEL.FCOS.NORM, top_levels=cfg.MODEL.FCOS.TOP_LEVELS,
-        num_cls_convs=cfg.MODEL.FCOS.NUM_CLS_CONVS,
-        num_box_convs=cfg.MODEL.FCOS.NUM_BOX_CONVS,
-        num_share_convs=cfg.MODEL.FCOS.NUM_SHARE_CONVS,
-        num_levels=len(cfg.MODEL.FCOS.IN_FEATURES),
-        mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
-        maskiou_num_conv=cfg.MODEL.ROI_MASKIOU_HEAD.NUM_CONV,
-        keypoint_num_conv=len(cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS))
-    if report["unused_torch_keys"]:
-        print(f"[warn] {len(report['unused_torch_keys'])} checkpoint keys "
-              f"unused, e.g. {report['unused_torch_keys'][:5]}")
-    load_jax_params(model, tree)
 
 
 def finish(args, results, evaluator, avg_ms) -> None:
@@ -204,6 +181,7 @@ def main(argv=None) -> None:
     # the process group first, before any model or CUDA work (the JAX CLI
     # joins its cluster after model.init, which jax.distributed refuses)
     init_distributed(device=args.device)
+    from ..checkpoint.weights import load_weights
     from ..config import get_cfg
     from ..evaluation.loop import evaluate_dataset
     from ..models.meta import build_centermask

@@ -10,8 +10,9 @@ V-39-eSE flagship (random weights from a seed) through the kernels, and
 times the kernels and the end-to-end latency; then it serves and trains
 the other backbone families and the person-keypoint model, serves
 the flagship with the adaptive ROIAlign buckets and with deformable
-convs, and trains, serves and evaluates it data-parallel. Phases, in
-order:
+convs, trains, serves and evaluates it data-parallel, and drives the
+deployment toolchain (bins, the parity ladder, layer dumps, measures,
+Cityscapes scoring, the native packer). Phases, in order:
 
 1. card:    the card's name and power limit (nvidia-smi).
 2. build:   nvcc of every kernel, in parallel; build seconds, and each
@@ -174,12 +175,33 @@ order:
             distributed=True)`` over the 8-image synthetic set against
             the one-process run, and the ground truth fed back through
             the cross-rank merge at AP 100.
-14. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+14. deploy: the deployment toolchain (``deploy_phase``) on the flagship
+            at full width in f32 (TF32 off), 1344x1344, random weights:
+            ``tools/preprocess_to_bin`` over the 8-image synthetic set
+            (files of 4*3*1344^2 bytes, read back bit-equal to
+            ``preprocess_for_model``'s input, ms/img); each bin through
+            ``read_input_bin``, ``inference`` on the card and
+            ``write_output_bins``, then ``tools/postprocess_bins``, its
+            metrics equal to a ``COCOEvaluator`` fed the outputs in
+            memory, and with one image's bins deleted, one reported
+            missing; ``tools/parity_check`` (PARITY OK, direct | exported
+            and direct | bins above cosine 1 - 1e-5, one launch of kernels
+            1 and 2 a rung; both kernels against their plain versions on
+            its input); ``check_layers``' dumps of the card and the CPU
+            compared by name (up to the FCOS head above cosine 1 - 1e-5,
+            the ROI stage where both decodes selected alike), the dump and
+            compare CLIs on the FCOS logits; ``tools/measure``
+            (parameters, bytes, FLOPs equal to ``inference_flops``, peak
+            bytes); the Cityscapes scorers on arrays with PIL blocked (AP
+            100, IoU 100); the eval loop's host split over 64 images with
+            the numpy and the native s2d pack (read and pack ms/img, the
+            packs bit-equal).
+15. result: a ``{"kernels": [...]}`` line whose launches sum the counts
             of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
-            ``train``, ``backbones``, ``keypoints`` and ``parallel``'s
-            first part (the launch functions' counts: eager launches and
-            captures, not replays), then the last line ``{"ok": true,
-            "device": {...}}``.
+            ``train``, ``backbones``, ``keypoints``, ``parallel``'s
+            first part and ``deploy`` (the launch functions' counts: eager
+            launches and captures, not replays), then the last line
+            ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -1820,7 +1842,7 @@ def check_ground_truth_ap(ann: str) -> dict:
     return ap
 
 
-def eval_host_split(run, n_images: int) -> None:
+def eval_host_split(run, n_images: int) -> dict:
     """The eval loop's host time by part, over one ``run(timed)`` of it:
     each part of the loop wrapped by ``timed`` in a clock (preprocess:
     read, resize and pack, in the prefetch thread; request: issuing it, a
@@ -1828,7 +1850,7 @@ def eval_host_split(run, n_images: int) -> None:
     outputs; postprocess: rescale and mask paste; evaluator: the RLE
     encoding and records; metrics: the COCO evaluation at the end), ms an
     image each, beside the run's wall time and, by the profiler, the
-    device's kernel time."""
+    device's kernel time. Returns the parts' ms an image."""
     from torch.profiler import ProfilerActivity, profile
 
     from centermask2_tpu_torch.evaluation import loop
@@ -1873,6 +1895,7 @@ def eval_host_split(run, n_images: int) -> None:
         f"included); host ms/img by part " + ", ".join(
             f"{k} {v * 1e3 / n_images:.3f}" for k, v in sorted(spent.items()))
         + f"; device kernel time {device} (profiler)")
+    return {k: v * 1e3 / n_images for k, v in spent.items()}
 
 
 def eval_runs(model, ann: str, modes, common: dict, n_images: int,
@@ -4011,6 +4034,442 @@ def parallel_phase(dev, cfg=None, batch: int = TRAIN_BATCH,
     return totals, errs
 
 
+# ---------------------------------------------------------------- deploy
+# layers gated by [deploy] whatever the decode selected: everything up to
+# and including the FCOS head's outputs
+DEPLOY_GATED_STAGES = ("backbone/", "fpn/", "fcos_head/")
+# the root outputs that say what the decode selected: locations, classes,
+# valid (the ROI stage is gated where both runs selected alike)
+DEPLOY_SELECTION_KEYS = ("__call__[0][0]", "__call__[0][3]",
+                         "__call__[0][6]")
+LAYER_COS = 1 - 1e-5  # the layer and parity criterion (run_shell.py:22)
+
+
+def cfg_opts(cfg) -> list:
+    """``cfg`` as the KEY VALUE overrides of the defaults that rebuild it
+    in a CLI, each value a Python literal (read without yaml)."""
+    from centermask2_tpu_torch.config import get_cfg
+
+    def leaves(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+
+    base = dict(leaves(get_cfg()))
+    return [s for k, v in leaves(cfg) if base[k] != v for s in (k, repr(v))]
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    """Two (nested) metric dicts equal, NaN where both are NaN."""
+    if set(a) != set(b):
+        return False
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, dict):
+            if not (isinstance(y, dict) and same_metrics(x, y)):
+                return False
+        elif not (x == y or (x != x and y != y)):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def launches_into(counts: dict):
+    """Adds the launches of kernels 1 and 2 inside the block to
+    ``counts``."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    before = _kernels.launch_counts()
+    try:
+        yield
+    finally:
+        now = _kernels.launch_counts()
+        for k in ("nms", "roi_align"):
+            counts[k] = counts.get(k, 0) + now[k] - before[k]
+
+
+def run_cli(main, argv) -> tuple:
+    """(``main(argv)``'s return value, its standard output), the output
+    also logged line by line."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    | {line}")
+    return rc, text
+
+
+@contextlib.contextmanager
+def no_pil():
+    """PIL cannot be imported inside the block."""
+    import importlib.abc
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] == "PIL":
+                raise ImportError(f"blocked: {name}")
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k.split(".")[0] == "PIL"}
+    blocker = Block()
+    sys.meta_path.insert(0, blocker)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(blocker)
+        sys.modules.update(saved)
+
+
+def deploy_bins(dev, model, root: str, ann: str, fixed: int, short: int,
+                max_size: int, launches: dict) -> dict:
+    """Steps 1 and 2 of ``[deploy]``: the bin contract in and out around
+    the device. Returns the first image's six output rows and its
+    height and width."""
+    from centermask2_tpu_torch.data import (bin_io, detector_postprocess,
+                                            preprocess_for_model,
+                                            single_wrap_outputs)
+    from centermask2_tpu_torch.evaluation import COCOEvaluator, COCOGt
+    from centermask2_tpu_torch.tools import (postprocess_bins,
+                                             preprocess_to_bin)
+
+    with open(ann) as f:
+        dataset = json.load(f)
+    images = sorted(dataset["images"], key=lambda im: im["id"])
+    bins, dumps = os.path.join(root, "bins"), os.path.join(root, "dumps")
+    t0 = time.perf_counter()
+    paths = preprocess_to_bin.write_input_bins(
+        ann, root, bins, read_image=np.load, fixed_size=fixed, short=short,
+        max_size=max_size)
+    write_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    for im, path in zip(images, paths):
+        size = os.path.getsize(path)
+        want = preprocess_for_model(os.path.join(root, im["file_name"]),
+                                    fixed, short, max_size,
+                                    read_image=np.load)["input"][0]
+        got = bin_io.read_input_bin(path, fixed)
+        if size != 4 * 3 * fixed * fixed or got.tobytes() != want.tobytes():
+            raise AssertionError(f"bins in {path}: {size} bytes, equal to "
+                                 f"preprocess_for_model's input "
+                                 f"{got.tobytes() == want.tobytes()}")
+    log(f"  bins in: preprocess_to_bin wrote {len(paths)} files of "
+        f"{4 * 3 * fixed * fixed} bytes (f32 1x3x{fixed}x{fixed}), "
+        f"{write_ms:.1f} ms/img; each read back equals preprocess_for_model's "
+        f"input bit for bit")
+
+    gt = COCOGt(dataset)
+    ev = COCOEvaluator(gt, category_id_map=dict(enumerate(sorted(gt.cats))))
+    served, n_valid, per_image = {}, 0, []
+    os.makedirs(dumps)
+    with launches_into(launches):
+        for im, path in zip(images, paths):
+            t0 = time.perf_counter()
+            x = torch.from_numpy(bin_io.read_input_bin(path, fixed)[None]
+                                 .copy()).to(dev)
+            out = model.inference(x)
+            v = out.valid[0]
+            six = [getattr(out, n)[0][v].cpu().numpy()
+                   for n in bin_io.OUTPUT_NAMES]
+            stem = os.path.splitext(im["file_name"])[0]
+            bin_io.write_output_bins(six, os.path.join(dumps, stem))
+            per_image.append((time.perf_counter() - t0) * 1e3)
+            served.setdefault("six", six)
+            ev.process(im["id"], detector_postprocess(
+                single_wrap_outputs(six), im["height"], im["width"],
+                short=short, max_size=max_size))
+            n_valid += len(six[0])
+    want = ev.evaluate()
+    t0 = time.perf_counter()
+    got, missing = postprocess_bins.evaluate_bins(ann, dumps, short=short,
+                                                  max_size=max_size)
+    post_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    if missing or not same_metrics(got, want):
+        raise AssertionError(f"postprocess_bins: missing {missing}, metrics "
+                             f"{got} against the evaluator's {want}")
+    log(f"  device pipeline: read_input_bin, inference, write_output_bins: "
+        f"the first image {per_image[0]:.1f} ms, the others' median "
+        f"{np.median(per_image[1:]):.1f} ms ({n_valid} valid detections "
+        f"over {len(images)} images); postprocess_bins {post_ms:.1f} "
+        f"ms/img: bbox "
+        f"AP {got['bbox']['AP']:.4f}, segm AP {got['segm']['AP']:.4f}, every "
+        f"number equal to a COCOEvaluator fed the outputs in memory")
+    stem = os.path.splitext(images[0]["file_name"])[0]
+    for i in range(1, 7):
+        os.unlink(os.path.join(dumps, f"{stem}_{i}.bin"))
+    _, text = run_cli(postprocess_bins.main, ["--ann", ann, "--bin-dir",
+                                              dumps])
+    if "1 images missing bins (skipped)" not in text:
+        raise AssertionError("postprocess_bins did not report the image "
+                             "whose bins were deleted")
+    log("  postprocess_bins with one image's bins deleted: reports 1 "
+        "missing, returns normally")
+    return served["six"], images[0]["height"], images[0]["width"]
+
+
+def deploy_layers(dev, model, cfg, x, root: str, cli: list,
+                  launches: dict) -> None:
+    """Step 4 of ``[deploy]``: ``check_layers``' dump of the model on the
+    card against the same model on the CPU, by name; then the CLI's dump
+    of the FCOS logits on the card against the CPU's, by the CLI."""
+    from centermask2_tpu_torch import build_centermask
+    from centermask2_tpu_torch.tools import check_layers
+
+    t0 = time.perf_counter()
+    with launches_into(launches):
+        card = check_layers.capture_layers(model, x)
+    card_s = time.perf_counter() - t0
+    host_model = build_centermask(cfg, device="cpu")
+    host_model.load_state_dict({k: v.cpu()
+                                for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    host = check_layers.capture_layers(host_model, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    del host_model
+    rows, only_card, only_cpu = check_layers.compare_layers(card, host)
+    if only_card or only_cpu:
+        raise AssertionError(f"layer keys of one dump only: {only_card[:5]} "
+                             f"{only_cpu[:5]}")
+    same_pick = all(np.array_equal(card[k], host[k])
+                    for k in DEPLOY_SELECTION_KEYS)
+    gated = [r for r in rows
+             if r[2].startswith(DEPLOY_GATED_STAGES) or same_pick]
+    roi = [r for r in rows if not r[2].startswith(DEPLOY_GATED_STAGES)]
+    mb = sum(a.nbytes for a in card.values()) / 1e6
+    log(f"  layers, card against CPU: {len(rows)} layers compared "
+        f"({mb:.0f} MB a dump), dumped in {card_s:.1f} s on the card and "
+        f"{cpu_s:.1f} s on the CPU; worst cosine up to the FCOS head "
+        f"{min(r[0] for r in rows if r not in roi):.12f}; the decode's "
+        f"selections equal {same_pick}, so the {len(roi)} ROI-stage and "
+        f"output layers are {'gated' if same_pick else 'printed only'}")
+    for c, m, k in roi[:8]:
+        log(f"    {c:.12f} {m:.3e}  {k}")
+    bad = [r for r in gated if not r[0] > LAYER_COS]
+    if bad:
+        raise AssertionError(f"layers below cosine {LAYER_COS}: {bad[:5]}")
+    logits = {k: v for k, v in host.items() if "/cls_logits/" in k}
+    del card, host
+
+    dumps = [os.path.join(root, f"{w}.npz") for w in ("card", "cpu")]
+    np.savez(dumps[1], **logits)
+    with launches_into(launches):
+        run_cli(check_layers.main, ["dump", "--out", dumps[0], "--filter",
+                                    "cls_logits", "--list", "1"] + cli)
+    rc, _ = run_cli(check_layers.main, ["compare", *dumps, "--show", "3"])
+    if rc:
+        raise AssertionError("check_layers compare of the card's CLI dump "
+                             "(the FCOS logits) against the CPU's exited 1")
+
+
+def deploy_cityscapes(six, h: int, w: int) -> None:
+    """Step 6 of ``[deploy]``: the Cityscapes scorers on arrays, with no
+    PIL. The ground truth is a served image's own masks (``six``, the
+    output contract's rows), pasted by ``paste_masks_np`` into the cells
+    of a grid over its ``h`` x ``w`` (the random weights' boxes span a few
+    pixels, below the scorer's 100-pixel minimum); the predictions are
+    the same masks with their mask scores."""
+    from centermask2_tpu_torch.data import paste_masks_np
+    from centermask2_tpu_torch.evaluation.cityscapes_scoring import (
+        INSTANCE_LABELS, MIN_REGION_SIZE, score_instances)
+    from centermask2_tpu_torch.evaluation.cityscapes_semseg import \
+        score_semseg
+
+    masks, classes, mask_scores = six[4][:, 0], six[3], six[1]
+    n = len(masks)
+    cols = int(np.ceil(np.sqrt(n)))
+    cell = min(h // -(-n // cols), w // cols)
+    boxes = np.array([[(i % cols) * cell, (i // cols) * cell,
+                       (i % cols + 1) * cell - 1, (i // cols + 1) * cell - 1]
+                      for i in range(n)], np.float32)
+    pasted = paste_masks_np(masks, boxes, (h, w), 0.5)
+    labels = sorted(INSTANCE_LABELS)
+    inst = np.full((h, w), 7, np.int64)  # road
+    for i in range(n):
+        inst[pasted[i]] = labels[int(classes[i]) % len(labels)] * 1000 + i
+    ids, area = np.unique(inst[inst >= 1000], return_counts=True)
+    preds = [(inst == i, int(i) // 1000, float(mask_scores[int(i) % 1000]))
+             for i in ids]
+    sem = np.where(inst >= 1000, inst // 1000, inst).astype(np.uint8)
+    with no_pil():
+        ins = score_instances([inst], [preds])
+        seg = score_semseg([(sem, sem)], [(sem, inst)])
+    scored = int((area >= MIN_REGION_SIZE).sum())
+    if not scored or abs(ins["AP"] - 100.0) > 1e-9 or \
+            abs(seg["IoU"] - 100.0) > 1e-9:
+        raise AssertionError(f"cityscapes on arrays: {scored} of {len(ids)} "
+                             f"instances scored, AP {ins['AP']}, IoU "
+                             f"{seg['IoU']}")
+    log(f"  cityscapes on arrays, PIL blocked: a served {h}x{w} image's {n} "
+        f"masks pasted into {cell} px cells, {len(ids)} non-empty, {scored} "
+        f"of {MIN_REGION_SIZE} px or more: AP {ins['AP']:.4f}, AP50 "
+        f"{ins['AP50']:.4f}; the labeling against itself: IoU "
+        f"{seg['IoU']:.4f}, IoU_sup {seg['IoU_sup']:.4f}")
+
+
+def deploy_packer(dev, cfg, root: str, shapes, sides, fixed: int,
+                  short: int, max_size: int, n_images: int,
+                  launches: dict) -> None:
+    """Step 7 of ``[deploy]``: the eval loop's host split over the same
+    images with the numpy pack and with the native one; the packs
+    bit-equal."""
+    from centermask2_tpu_torch.data import preprocess
+    from centermask2_tpu_torch.evaluation.loop import evaluate_dataset
+
+    model = build_model(cfg, dev)
+    ann = make_coco_dataset(root, shapes, sides=sides, n_images=n_images)
+    # the native library is built at its first use: before the clocks
+    preprocess.s2d_pack_u8(np.zeros((4, 4, 3), np.uint8), 4)
+    common = dict(image_root=root, fixed_size=fixed, min_size=short,
+                  max_size=max_size, progress_every=0, read_image=np.load)
+    native = preprocess.s2d_pack_u8
+    packs, ms = {}, {}
+    for name, pack in (("numpy", preprocess.s2d_pack_u8_plain),
+                       ("native", native)):
+        seen = packs.setdefault(name, [])
+
+        def recorded(*args, _pack=pack, _seen=seen):
+            _seen.append(_pack(*args))
+            return _seen[-1]
+
+        preprocess.s2d_pack_u8 = recorded
+        try:
+            with launches_into(launches):
+                parts = eval_host_split(lambda timed: evaluate_dataset(
+                    model, ann=ann, fn=timed("request", model.inference),
+                    **common), n_images)
+        finally:
+            preprocess.s2d_pack_u8 = native
+        ms[name] = parts["preprocess"]
+    equal = len(packs["numpy"]) == len(packs["native"]) == n_images and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for a, b in zip(packs["numpy"], packs["native"]))
+    if not equal:
+        raise AssertionError(f"packs: {len(packs['numpy'])} numpy, "
+                             f"{len(packs['native'])} native, not bit-equal")
+    log(f"  native packer: read and pack {ms['numpy']:.3f} ms/img with the "
+        f"numpy pack, {ms['native']:.3f} with the native one "
+        f"({len(os.sched_getaffinity(0))} host CPUs), over {n_images} "
+        f"images; the {n_images} packs bit-equal")
+
+
+def deploy_phase(dev, cfg=None, serving=None, shapes=EVAL_SHAPES,
+                 sides=(20, 64, 240),
+                 split_images: int = EVAL_SPLIT_IMAGES) -> tuple:
+    """The ``[deploy]`` phase: the deployment toolchain on the flagship in
+    f32 (``cfg``; the caller sets TF32 off) and the native packer on the
+    serving config (``serving``), random weights (seed 0, cls bias 0),
+    over synthetic sets of ``shapes`` at their resize (``cfg``'s canvas
+    and resize).
+
+    1. bins in: ``preprocess_to_bin`` over the synthetic set; every file
+       4*3*fixed^2 bytes, read back bit-equal to ``preprocess_for_model``.
+    2. the device pipeline: each bin through ``read_input_bin``,
+       ``model.inference`` and ``write_output_bins``; ``postprocess_bins``'
+       metrics equal to a ``COCOEvaluator`` fed the outputs in memory;
+       one image's bins deleted: reported missing, not fatal.
+    3. ``parity_check`` (the CLI, on the model's weights as a converted
+       checkpoint): ``PARITY OK``, one launch of kernels 1 and 2 on each
+       of the direct and exported rungs; each kernel held against its
+       plain version on the ladder's input.
+    4. ``check_layers``' dumps on the card and on the CPU, compared: every
+       layer up to the FCOS head's outputs above cosine 1 - 1e-5, the ROI
+       stage gated where both decodes selected alike; the dump CLI on the
+       card (the FCOS logits) compared clean with the CPU's by the
+       compare CLI.
+    5. ``measure`` (the CLI): parameters, bytes, FLOPs equal to
+       ``inference_flops``, peak bytes of one request.
+    6. the Cityscapes scorers on arrays with PIL blocked: AP 100 and IoU
+       100 on ground truth painted from a served image's masks.
+    7. the eval loop's host split over ``split_images`` images with the
+       numpy and the native pack: read and pack ms/img, packs bit-equal.
+
+    Returns (the launches of kernels 1 and 2 counted, the kernels' worst
+    errors against their plain versions)."""
+    import tempfile
+
+    from centermask2_tpu_torch.checkpoint.torch_io import save_checkpoint
+    from centermask2_tpu_torch.export import inference_flops
+    from centermask2_tpu_torch.tools import measure, parity_check
+
+    if cfg is None:
+        cfg = flagship_cfg()
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    fixed, short = cfg.TPU.FIXED_EDGE_SIZE, cfg.INPUT.MIN_SIZE_TEST
+    max_size = cfg.INPUT.MAX_SIZE_TEST
+    card = card_line()
+    model = build_model(cfg, dev)
+    launches = {"nms": 0, "roi_align": 0}
+    steps = {}
+    with tempfile.TemporaryDirectory() as root:
+        weights = os.path.join(root, "weights")
+        save_checkpoint(weights, {"model": model.state_dict(), "step": 0}, 0)
+        cli = ["--weights", weights, "--device", str(dev)] + cfg_opts(cfg)
+
+        t0 = time.perf_counter()
+        ann = make_coco_dataset(root, shapes, sides=sides)
+        served = deploy_bins(dev, model, root, ann, fixed, short, max_size,
+                             launches)
+        steps["bins in and out"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ladder = {}
+        with launches_into(ladder):
+            rc, text = run_cli(parity_check.main, cli)
+        cos = [float(v) for ln in text.splitlines()[1:8]
+               for v in ln.split()[1::2]]
+        if rc or "PARITY OK" not in text or ladder != {"nms": 2,
+                                                       "roi_align": 2}:
+            raise AssertionError(f"parity_check: exit {rc}, launches "
+                                 f"{ladder} (one a rung)")
+        for k in launches:
+            launches[k] += ladder[k]
+        x = parity_check.model_input(model, cfg)
+        seen = capture_kernel_inputs(lambda: model.inference(x))
+        errs = {"nms": nms_case(*seen["nms"], "parity ladder input"),
+                "roi_align": roi_case(*seen["roi_align"][:7],
+                                      "parity ladder input")}
+        del seen
+        log(f"  parity ladder at {fixed}x{fixed} f32: PARITY OK, worst "
+            f"cosine {min(cos):.6f} (the CLI's digits) over the direct | "
+            f"exported and direct | bins columns; launches {ladder} (direct "
+            f"and exported rungs)")
+        steps["parity ladder"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        deploy_layers(dev, model, cfg, x, root, cli, launches)
+        steps["layers"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with launches_into(launches):
+            _, text = run_cli(measure.main, cli)
+        full = text.split("full inference: ")[1]
+        flops = int(full.split("[")[1].split("]")[0])
+        want = inference_flops(model, tuple(x.shape))
+        if flops != want:
+            raise AssertionError(f"measure: {flops} FLOPs, inference_flops "
+                                 f"{want}")
+        log(f"  measures ({card}): {text.splitlines()[1].split(': ', 1)[1]}; "
+            f"{flops / 1e9:.1f} GFLOP at {fixed}x{fixed}, equal to "
+            f"inference_flops; one request{full.split(']')[1].rstrip()}")
+        steps["measures"] = time.perf_counter() - t0
+
+        deploy_cityscapes(*served)
+        del model
+        gc.collect()
+        free_cuda()
+
+        t0 = time.perf_counter()
+        deploy_packer(dev, serving or serving_cfg(), root, shapes, sides,
+                      fixed, short, max_size, split_images, launches)
+        steps["native packer"] = time.perf_counter() - t0
+    log(f"  [deploy] seconds by step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()) + f"; launches {launches}")
+    return launches, errs
+
+
 def flagship_phases(dev, nms_err: int, roi_err: float):
     """``[serve]``, ``[time]``, ``[graphs]``, ``[serving]``, ``[eval]``,
     ``[export]`` and ``[train]``: the V-39 flagship and its serving
@@ -4137,13 +4596,22 @@ def main() -> int:
         f"all-reduce, SyncBN, BN, TPU.REMAT_BACKBONE, make_dp_inference), "
         f"then {RANKS} gloo ranks on the card ({card})")
     dp_launches, dp_errs = parallel_phase(dev)
+    free_cuda()
+    log(f"[deploy] the deployment toolchain on the flagship at full width, "
+        f"f32 (TF32 off), {FIXED}x{FIXED}, random weights (seed 0): bins in "
+        f"and out, the parity ladder, layer dumps card against CPU, "
+        f"measures, Cityscapes on arrays, the native packer ({card})")
+    with exact_f32():
+        dep_launches, dep_errs = deploy_phase(dev)
     for row in (nms, roi, bwd):
         row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]],
-                                 kp_errs[row["name"]], dp_errs[row["name"]])
+                                 kp_errs[row["name"]], dp_errs[row["name"]],
+                                 dep_errs.get(row["name"], 0))
 
     for row in (nms, roi, bwd):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
-            *v39_launches, bb_launches, kp_launches, dp_launches))
+            *v39_launches, bb_launches, kp_launches, dp_launches,
+            dep_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")

@@ -527,3 +527,54 @@ def test_parallel_phase_rehearsal(rehearsal, capsys, monkeypatch):
     from centermask2_tpu_torch.parallel import process_count
 
     assert process_count() == 1  # the group was left
+
+
+def test_cfg_opts_rebuild_the_config():
+    """``cfg_opts`` gives the CLIs of ``[deploy]`` the flagship and the
+    serving config as KEY VALUE overrides of the defaults, read back equal
+    with no yaml."""
+    for cfg in (chip_smoke.flagship_cfg(), chip_smoke.serving_cfg(),
+                _tiny_cfg(chip_smoke.flagship_cfg())):
+        again = get_cfg()
+        again.merge_from_list(chip_smoke.cfg_opts(cfg))
+        assert again == cfg
+
+
+def test_deploy_phase_rehearsal(rehearsal, capsys, monkeypatch):
+    """``[deploy]`` on the CPU at a 256x256 canvas: the ops call the
+    registered operators (so that the parity ladder's export traces
+    them), whose CPU versions reach ``_kernels``' counted plain versions;
+    one launch of kernels 1 and 2 for each of the 3 images of the bin
+    pipeline, 2 for the ladder's rungs, 1 for the layer dump and 1 for
+    the dump CLI, 1 for ``measure`` (the FLOP count; the memory run is
+    the card's only) and 2 x 6 for the host split's two runs."""
+    for (mod, name), fn in OP_ROUTES.items():
+        monkeypatch.setattr(mod, name, fn)
+    monkeypatch.setattr(nms_mod, "greedy_keep_sorted_plain",
+                        lambda b, v, t: _kernels.nms_keep_sorted(b, v, t))
+    monkeypatch.setattr(roi_mod, "multilevel_roi_align_plain",
+                        lambda *a: _kernels.roi_align(*a))
+    cfgs = [_tiny_cfg(chip_smoke.flagship_cfg()),
+            _tiny_cfg(chip_smoke.serving_cfg())]
+    for cfg in cfgs:
+        cfg.merge_from_list(["TPU.FIXED_EDGE_SIZE", 256,
+                             "INPUT.MIN_SIZE_TEST", 128,
+                             "INPUT.MAX_SIZE_TEST", 250])
+    launches, errs = chip_smoke.deploy_phase(
+        "cpu", *cfgs, shapes=((128, 250), (250, 128), (128, 128)),
+        sides=(20, 64, 110), split_images=6)
+    assert launches == {"nms": 3 + 2 + 1 + 1 + 1 + 12, "roi_align": 20}
+    assert errs == {"nms": 0, "roi_align": 0.0}
+    out = capsys.readouterr().out
+    assert "bins in: preprocess_to_bin wrote 3 files of 786432 bytes" in out
+    assert "each read back equals preprocess_for_model's input bit for " \
+        "bit" in out
+    assert "every number equal to a COCOEvaluator fed the outputs in " \
+        "memory" in out
+    assert "reports 1 missing, returns normally" in out
+    assert "PARITY OK" in out and "| PARITY OK" in out
+    assert "layers, card against CPU: " in out
+    assert "0 layers below cosine threshold" in out
+    assert "equal to inference_flops" in out
+    assert "AP 100.0000" in out and "IoU 100.0000" in out
+    assert "the 6 packs bit-equal" in out

@@ -319,3 +319,38 @@ def test_decode_boundary_tie_matches_jax(branch):
     w3 = shapes[0][1]
     idx = sorted((locs[:, 1] // 8) * w3 + locs[:, 0] // 8)
     assert [int(i) for i in idx] == list(range(0, 20, 2)) + [101, 102]
+
+
+@pytest.mark.slow
+def test_whole_v39_flagship_matches_jax():
+    """The whole V-39-eSE flagship at full width (80 classes, FPN 256, mask
+    and MaskIoU convs 256, 50 slots), JAX against the port in f32, on a
+    128x160 canvas: the JAX parameters perturbed as above go through
+    ``load_jax_params``, and the valid slots agree within the tolerances
+    of ``test_whole_slice_matches_jax``."""
+    rng = np.random.RandomState(3)
+    img = (rng.rand(1, 128, 160, 3).astype(np.float32) * 255.0 - PIXEL_MEAN)
+    jm = JaxCenterMask(conv_body="V-39-eSE", dtype=jnp.float32)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(img))
+    params = _perturb(jax.tree.map(np.asarray, variables["params"]), rng)
+    out = jax.jit(lambda p, x: jm.apply({"params": p}, x))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(img))
+    port = CenterMask(conv_body="V-39-eSE", dtype=torch.float32).eval()
+    load_jax_params(port, params)
+    got = port.inference(torch.from_numpy(img))
+
+    valid = np.asarray(out.valid[0])
+    np.testing.assert_array_equal(got.valid[0].numpy(), valid)
+    n = int(valid.sum())
+    assert n > 3, "the parity test needs detections to be meaningful"
+
+    def pair(field):
+        return getattr(got, field)[0][:n].numpy(), \
+            np.asarray(getattr(out, field)[0])[:n]
+
+    np.testing.assert_array_equal(*pair("pred_classes"))
+    np.testing.assert_allclose(*pair("locations"), atol=1e-3)
+    np.testing.assert_allclose(*pair("scores"), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(*pair("pred_boxes"), rtol=1e-3, atol=2e-2)
+    np.testing.assert_allclose(*pair("pred_masks"), atol=2e-3)
+    np.testing.assert_allclose(*pair("mask_scores"), rtol=2e-3, atol=2e-3)
