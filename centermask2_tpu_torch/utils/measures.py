@@ -10,13 +10,20 @@ statistics not. ``count_flops`` is the one FLOP counter of the port
 one run, which counts the convolutions and matrix products (two FLOPs
 per multiply-add). It is not XLA's cost analysis, which the JAX
 package reads and which also counts elementwise work, so the two totals
-differ by that work. ``measure_model`` adds the peak device memory of
+differ by that work. ``count_grad_flops`` counts a forward with its
+backward the same way. ``measure_model`` adds the peak device memory of
 the run on CUDA (``torch.cuda.max_memory_allocated``).
+
+``peaks_of`` gives a card's published peaks by its name: dense FLOP/s in
+bf16, in TF32 and in f32 outside the tensor cores, and the HBM bytes/s
+(``Peaks``); ``chip_peaks`` those of the current card and
+``chip_peak_flops`` its bf16 rate. The roofline bounds of
+``tools/roofline_bound.py`` and of ``chip_smoke.py`` read them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -24,13 +31,34 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..checkpoint.from_jax import params_entries
 
-# Peak dense bf16 tensor-core rates (FLOP/s) of one card, by a substring
-# of torch.cuda.get_device_name, most specific first. Source: NVIDIA's
-# H100 data sheet (SXM 989 TFLOP/s, PCIe 756 TFLOP/s, without sparsity),
-# at the card's full power limit.
+
+
+class Peaks(NamedTuple):
+    """Published dense peaks of one card: FLOP/s by the type the tensor
+    cores (or, for ``f32``, the plain FP32 units) compute in, and the
+    device memory's bytes/s."""
+
+    bf16: float
+    tf32: float
+    f32: float
+    hbm_bytes_s: float
+
+    def flops(self, dtype: torch.dtype, tf32: bool = False) -> float:
+        """The peak for a product computed in ``dtype``: bf16 and fp16 on
+        the tensor cores; float32 there in TF32 when ``tf32`` allows it,
+        else on the FP32 units."""
+        if dtype in (torch.bfloat16, torch.float16):
+            return self.bf16
+        return self.tf32 if tf32 else self.f32
+
+
+# Peaks of one card by a substring of torch.cuda.get_device_name, most
+# specific first. Source: NVIDIA's H100 data sheet, dense rates without
+# sparsity, at the card's full power limit (SXM 700 W: 989 bf16, 495
+# TF32, 67 f32 TFLOP/s, 3.35 TB/s; PCIe: 756, 378, 51, 2.0 TB/s).
 _CHIP_PEAKS = (
-    ("h100 pcie", 756e12),
-    ("h100", 989e12),
+    ("h100 pcie", Peaks(756e12, 378e12, 51e12, 2.0e12)),
+    ("h100", Peaks(989e12, 495e12, 67e12, 3.35e12)),
 )
 
 
@@ -61,6 +89,15 @@ def count_flops(model: nn.Module, fn: Callable, *args) -> int:
     return int(counter.get_total_flops())
 
 
+def count_grad_flops(fn: Callable, *args) -> int:
+    """FLOPs of one call ``fn(*args)`` that runs a forward and its
+    backward (the caller's ``backward()`` inside ``fn``), counted by
+    ``FlopCounterMode``: the backward's products count as well."""
+    with torch.enable_grad(), FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return int(counter.get_total_flops())
+
+
 def measure_model(model: nn.Module, fn: Callable, *args) -> Dict[str, float]:
     """``{"flops", "peak_bytes"}`` of one call ``fn(*args)``: the FLOPs
     (``count_flops``) and, on CUDA, the device memory the call allocated
@@ -79,15 +116,28 @@ def measure_model(model: nn.Module, fn: Callable, *args) -> Dict[str, float]:
     return out
 
 
+def peaks_of(kind: str) -> Optional[Peaks]:
+    """The published peaks of a card by its ``get_device_name`` (or
+    ``nvidia-smi``) name; None for a card the table does not know."""
+    kind = kind.lower()
+    for key, peaks in _CHIP_PEAKS:
+        if key in kind:
+            return peaks
+    return None
+
+
+def chip_peaks(device: Optional[torch.device] = None) -> Optional[Peaks]:
+    """The peaks of a CUDA ``device`` (default: the current one); None
+    when it is not a GPU or the table does not know it."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return peaks_of(torch.cuda.get_device_name(device))
+
+
 def chip_peak_flops(device: Optional[torch.device] = None) -> float:
     """Peak dense bf16 FLOP/s of a CUDA ``device`` (default: the current
     one) from its name; 0.0 when the device is unknown or not a GPU,
     and callers then report no utilization."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        return 0.0
-    kind = torch.cuda.get_device_name(device).lower()
-    for key, peak in _CHIP_PEAKS:
-        if key in kind:
-            return peak
-    return 0.0
+    peaks = chip_peaks(device)
+    return peaks.bf16 if peaks is not None else 0.0

@@ -12,7 +12,8 @@ the other backbone families and the person-keypoint model, serves
 the flagship with the adaptive ROIAlign buckets and with deformable
 convs, trains, serves and evaluates it data-parallel, and drives the
 deployment toolchain (bins, the parity ladder, layer dumps, measures,
-Cityscapes scoring, the native packer). Phases, in order:
+Cityscapes scoring, the native packer) and the port's measuring tools.
+Phases, in order:
 
 1. card:    the card's name and power limit (nvidia-smi).
 2. build:   nvcc of every kernel, in parallel; build seconds, and each
@@ -196,12 +197,26 @@ Cityscapes scoring, the native packer). Phases, in order:
             100, IoU 100); the eval loop's host split over 64 images with
             the numpy and the native s2d pack (read and pack ms/img, the
             packs bit-equal).
-15. result: a ``{"kernels": [...]}`` line whose launches sum the counts
+15. bench:  the port's measuring tools (``bench_phase``) in this
+            process on the flagship at full width, bf16, with short
+            windows: ``tools/bench`` (800x1088 and 1344x1344 requests as
+            CUDA-graph replays, the serving loop, kernel 1 against its
+            plain version on bench.py's 1000-box set), ``bench_train``
+            (the captured step, 1344x1344, B = 2): each JSON line parses,
+            its device values finite and positive, the card's name;
+            ``bench_stages`` (with the ``nms_select`` arm) and
+            ``bench_train_stages``: the cumulative arms' medians rise
+            within their quartiles; ``profile_model`` of an eager request
+            and an eager step: at least 95% of the kernel time in named
+            sections, kernels 1 and 2 in the decode and ROI sections, 2b
+            in the ROI section's backward; ``roofline_bound`` of both
+            traces: no section's bound above 1.05x its measured time.
+16. result: a ``{"kernels": [...]}`` line whose launches sum the counts
             of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
             ``train``, ``backbones``, ``keypoints``, ``parallel``'s
-            first part and ``deploy`` (the launch functions' counts: eager
-            launches and captures, not replays), then the last line
-            ``{"ok": true, "device": {...}}``.
+            first part, ``deploy`` and ``bench`` (the launch functions'
+            counts: eager launches and captures, not replays), then the
+            last line ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -224,11 +239,6 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIXEL_MEAN = (103.53, 116.28, 123.675)
-
-# H100 SXM published peaks (dense), used for the bounds: HBM bytes/s and
-# f32 non-tensor-core flop/s (both kernels do f32 vector arithmetic).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 NMS_SOURCE = "centermask2_tpu_torch/csrc/nms.cu"
 ROI_SOURCE = "centermask2_tpu_torch/csrc/roi_align.cu"
@@ -452,6 +462,28 @@ def time_gpu_ms(fn, launches: int = 20, repeats: int = 7) -> float:
 
 
 # --------------------------------------------------------------- kernels
+def card_peaks():
+    """The card's published peaks (``utils/measures.py::chip_peaks``)."""
+    from centermask2_tpu_torch.utils.measures import chip_peaks
+
+    peaks = chip_peaks()
+    if peaks is None:
+        raise RuntimeError(f"no published peaks for "
+                           f"{torch.cuda.get_device_name(0)}")
+    return peaks
+
+
+def vector_bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the bound of a kernel of f32 vector
+    arithmetic (kernels 1, 2 and 2b), the larger of its bytes over the
+    card's HBM rate and its operations over its f32 rate outside the
+    tensor cores."""
+    peaks = card_peaks()
+    t_bytes, t_ops = nbytes / peaks.hbm_bytes_s, flops / peaks.f32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def nms_inputs(rng: np.random.RandomState, n: int):
     """Clustered boxes of 80 classes with invalid rows, exact duplicates,
     zero-area boxes (pairs of them have union 0) and score ties."""
@@ -575,9 +607,7 @@ def nms_row(sboxes, svalid, thr: float, what: str) -> dict:
     pairs = B * n * (n - 1) // 2
     flops = 13 * pairs + 3 * B * n  # min/max/sub x2, clamp x2, mul, add, sub, div, cmp
     nbytes = B * (n * 16 + n + n)  # boxes, valid in; keep out
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
-    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
-        "operations"
+    bound, by = vector_bound(nbytes, flops)
     log(f"  nms {what}: N={n} B={B}, {int(svalid.sum())} valid, {kept} kept; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
         f"({by})")
@@ -756,9 +786,7 @@ def roi_row(feats, boxes, bidx, levels, scales, o: int, s: int,
     elt = feats[0].element_size()
     nbytes = touched * C * elt + R * C * o * o * elt + R * (16 + 4 + 4)
     flops = R * C * o * o * (s * s * 12 + 1)
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
-    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
-        "operations"
+    bound, by = vector_bound(nbytes, flops)
     log(f"  roi_align {what}: {feats[0].dtype} R={R} C={C}, levels used "
         f"{sorted(set(levels.tolist()))}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}: {touched} touched "
@@ -1170,11 +1198,13 @@ KERNEL_CUDA_FNS = {"nms": ("nms_mask_kernel", "nms_scan_kernel"),
                                           "roi_align_backward_kernel")}
 GRAPH_REPLAYS = 5  # replays profiled for their kernel launches
 GRAPH_CANVASES = ((100, 800, 1088), (103, 1344, 1344))
-# a device sleep (20 ms at 1.98 GHz) before and after the profiled calls:
+# a device sleep (20 ms at 1.98 GHz) before and after each profiled call:
 # without it the profiler loses records of the first call after it starts
 # (an f32 1344x1344 replay, ~34k kernels, lost its port kernels in a
 # window of 5 now and then; centermask2_tpu_torch/tools/profile_replays.py
-# measures how often)
+# measures how often); with it, a window of five such replays (168,761
+# device events) still lost one replay's records once, so each replay
+# gets a window of its own
 REPLAY_PAD_CYCLES = int(1.98e9 * 0.020)
 
 
@@ -1182,42 +1212,45 @@ def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
     """Each port kernel of ``kernels`` launched once per call (or
     ``per_call[kernel]`` times) in ``n`` calls of ``run()``, counted by
     the profiler (a graph's replay does not pass through the launch
-    functions, so their counts cannot see it), the calls between two
-    device sleeps of ``REPLAY_PAD_CYCLES``. Raises on another count;
-    returns the calls verified, 0 when the profiler records no device
-    time (not measured)."""
+    functions, so their counts cannot see it), each call in a profiler
+    window of its own between two device sleeps of
+    ``REPLAY_PAD_CYCLES``. Raises on another count; returns the calls
+    verified, 0 when the profiler records no device time (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    evs = []
-    if torch.cuda.is_available():
+    got = {fn: 0 for k in kernels for fn in KERNEL_CUDA_FNS[k]}
+    events = []
+    for _ in range(n if torch.cuda.is_available() else 0):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(REPLAY_PAD_CYCLES)
-            for _ in range(n):
-                run()
+            run()
             torch.cuda._sleep(REPLAY_PAD_CYCLES)
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if getattr(e, "device_time_total", 0) > 0]
-    if not evs:
+        if not evs:
+            break
+        for fn in got:
+            got[fn] += sum(e.count for e in evs if fn in e.key)
+        events.append(sum(e.count for e in evs))
+    if len(events) < n:
         log(f"  {what}: profiler recorded no device time; launches per "
             "replay not measured")
         return 0
-    got = {fn: sum(e.count for e in evs if fn in e.key)
-           for k in kernels for fn in KERNEL_CUDA_FNS[k]}
     want = {fn: n * (per_call or {}).get(k, 1)
             for k in kernels for fn in KERNEL_CUDA_FNS[k]}
-    events = sum(e.count for e in evs)
     if got != want:
         raise AssertionError(f"{what}: {n} calls launched {got}, {want} "
-                             f"expected ({events} device events in the "
-                             "window)")
+                             f"expected (device events in the windows: "
+                             f"{events})")
     times = "once" if not per_call else ", ".join(
         f"{k} {v}x" for k, v in per_call.items())
     log(f"  {what}: the profiler counts each CUDA kernel of "
-        f"{', '.join(kernels)} {times} per call over {n} calls ({got}; "
-        f"{events} device events in the window)")
+        f"{', '.join(kernels)} {times} per call over {n} calls, a window "
+        f"each ({got}; device events in the windows {events})")
     return n
 
 
@@ -2437,9 +2470,7 @@ def roi_bwd_row(args, what: str) -> dict:
     level_elems = sum(int(np.prod(shp)) for shp in shapes)
     nbytes = grad.numel() * elt + level_elems * elt + R * (16 + 4 + 4)
     flops = C * samples * 4 * 2 + grad.numel()
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e3
-    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_FLOPS else \
-        "operations"
+    bound, by = vector_bound(nbytes, flops)
     # the design's own traffic: the prepass reads g once and writes its
     # tables (window, axis tables, a nonzero flag); every block tests the
     # R windows and flags; each (block, ROI) pair whose window reaches the
@@ -2465,7 +2496,7 @@ def roi_bwd_row(args, what: str) -> dict:
         f"{own} bytes ({level_elems * elt} written once, "
         f"{grad.numel() * elt} of g read by the prepass, {g_reads} of g "
         f"staged by the blocks, {tables} of tables and tests, mostly L2), "
-        f"{own / PEAK_BYTES_S * 1e3:.6f} ms at the peak rate")
+        f"{own / card_peaks().hbm_bytes_s * 1e3:.6f} ms at the peak rate")
     return {"name": "roi_align_backward", "route": "cuda",
             "source": ROI_SOURCE, "replaces": ROI_BWD_REPLACES, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -4470,6 +4501,238 @@ def deploy_phase(dev, cfg=None, serving=None, shapes=EVAL_SHAPES,
     return launches, errs
 
 
+# ----------------------------------------------------------------- bench
+# the tools' knobs in [bench]: short windows, the real widths
+BENCH_ENV = {"BENCH_ITERS": "10", "BENCH_BUDGET_S": "1",
+             "BENCH_DEADLINE_S": "300", "BENCH_REPS": "4"}
+# finite positive device values of the bench and bench_train lines
+BENCH_KEYS = ("value", "vs_baseline", "window_spread", "model_tflops",
+              "achieved_tflops", "mfu", "chip_peak_tflops",
+              "host_preprocess_ms", "host_pack_u8_ms",
+              "sustained_images_per_sec", "sustained_ms_per_image",
+              "batched_images_per_sec", "sustained_tight_images_per_sec",
+              "device_resident_images_per_sec", "transfer_mb_per_image",
+              "link_mb_per_sec", "projected_host_attached_images_per_sec")
+BENCH_TRAIN_KEYS = ("value", "imgs_per_sec", "step_tflops",
+                    "achieved_tflops", "mfu", "peak_memory_gib")
+# a section's bound may exceed its measured time by this factor at most
+BOUND_SLACK = 1.05
+PROFILE_SHARE = 0.95  # of the device kernel time in named sections
+
+
+@contextlib.contextmanager
+def tool_env(env: dict):
+    """``os.environ`` with ``env`` set inside the block."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_tool(main, argv, env: dict, counts: dict):
+    """``run_cli`` of one tool with ``env``, the launches of kernels 1, 2
+    and 2b inside it added to ``counts``."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    before = _kernels.launch_counts()
+    with tool_env(env):
+        out = run_cli(main, argv)
+    for k, n in _kernels.launch_counts().items():
+        counts[k] = counts.get(k, 0) + n - before[k]
+    return out
+
+
+def json_line(text: str, what: str) -> dict:
+    """The last line of a tool's output as JSON."""
+    try:
+        return json.loads(text.strip().splitlines()[-1])
+    except (IndexError, ValueError) as e:
+        raise AssertionError(f"{what}: no JSON line ({e})") from None
+
+
+def check_bench_line(line: dict, keys, cuda: bool, what: str) -> None:
+    """Each of ``keys`` finite and positive on the card (null on the CPU,
+    where only the host's ``host_*``/``transfer_*``/``model_tflops``/
+    ``step_tflops`` counts are real), and the card's name."""
+    if "error" in line:
+        raise AssertionError(f"{what}: {line['error']}")
+    host = ("host_", "transfer_", "model_tflops", "step_tflops")
+    for k in keys:
+        v = line.get(k, "absent")
+        if cuda or k.startswith(host):
+            if not isinstance(v, (int, float)) or not np.isfinite(v) or \
+                    v <= 0:
+                if not (k == "window_spread" and v == 0):
+                    raise AssertionError(f"{what}: {k} = {v}")
+        elif v is not None:
+            raise AssertionError(f"{what}: {k} = {v} on the CPU")
+    if cuda and line["device"]["name"] != card_line().split(",")[0].strip():
+        raise AssertionError(f"{what}: device {line['device']}")
+
+
+def check_rising(rows, what: str, cuda: bool = True) -> None:
+    """Each arm's median above the previous arm's, or below it by less
+    than the larger of the two arms' interquartile ranges (on the card;
+    a CPU rehearsal's host-clock medians are only logged)."""
+    for (na, a), (nb, b) in zip(rows if cuda else (), rows[1:]):
+        slack = max(a["q3_ms"] - a["q1_ms"], b["q3_ms"] - b["q1_ms"])
+        if b["median_ms"] < a["median_ms"] - slack:
+            raise AssertionError(
+                f"{what}: {nb} {b['median_ms']:.3f} ms below {na} "
+                f"{a['median_ms']:.3f} ms beyond the quartiles ({slack:.3f})")
+    log(f"  {what}: the arms' medians "
+        f"{'rise within their quartiles' if cuda else '(host clock)'}: "
+        + ", ".join(f"{n} {r['median_ms']:.3f} [{r['q1_ms']:.3f}, "
+                    f"{r['q3_ms']:.3f}]" for n, r in rows))
+
+
+def check_profile(summary: dict, cuda: bool, train: bool, what: str) -> None:
+    """At least ``PROFILE_SHARE`` of the kernel time in named sections;
+    kernels 1 and 2 in the decode and ROI sections, 2b in the ROI
+    section's backward."""
+    want = {"nms": "decode+nms", "roi_align": "roi+mask+maskiou"}
+    if train:
+        want["roi_align_backward"] = "roi+mask+maskiou [bwd]"
+    # on the CPU the ops' own names stand in for their kernels
+    names = KERNEL_CUDA_FNS if cuda else {
+        k: (f"cm2.{fn}.",) for k, fn in zip(("nms", "roi_align",
+                                             "roi_align_backward"),
+                                            KERNEL_FNS)}
+    found = {}
+    for sec, ks in summary["section_kernels"].items():
+        for name in ks:
+            for k in want:
+                if any(f in name for f in names[k]):
+                    found.setdefault(k, set()).add(sec)
+    bad = {k: found.get(k) for k, sec in want.items()
+           if found.get(k) != {sec}}
+    share = summary["attributed_share"]
+    if share < PROFILE_SHARE or bad:
+        raise AssertionError(f"{what}: {share:.4f} of the kernel time in "
+                             f"named sections; kernels in {bad}, want {want}")
+    log(f"  {what}: {share:.4f} of {summary['ms_per_run']:.3f} ms a run in "
+        f"named sections; {', '.join(f'{k} in {v}' for k, v in want.items())}"
+        f"; a replay {summary['replay_device_ms']} ms")
+
+
+def check_bounds(table: dict, what: str) -> None:
+    """No section's summed bound above ``BOUND_SLACK`` x its time."""
+    over = {s: r for s, r in table["sections"].items()
+            if r["bound_ms"] > BOUND_SLACK * r["actual_ms"]}
+    if over:
+        raise AssertionError(f"{what}: bounds above the measured times: "
+                             f"{over}")
+    log(f"  {what}: every section's bound within {BOUND_SLACK}x its time; "
+        f"total {table['total_ms']:.3f} ms, bound {table['bound_ms']:.3f} ms")
+
+
+def bench_phase(dev, opts=(), edge: int = FIXED, train_edge: int = FIXED,
+                batch: int = TRAIN_BATCH, profile_runs: int = 2,
+                trace_dir=None) -> tuple:
+    """The ``[bench]`` phase: the port's measuring tools (six CLIs and
+    ``utils/trace_sections.py``), in this process, on the flagship
+    (``configs/centermask/zy_model_config.yaml`` with ``opts``) with
+    short windows (``BENCH_ENV``):
+
+    1. ``tools/bench``: the 800x1088 request and the ``edge`` square as
+       CUDA-graph replays, the serving loop, the NMS check; its JSON
+       line's device values finite and positive, the card's name,
+       ``nms_kernel_equal`` true.
+    2. ``tools/bench_train``: the captured step at ``train_edge``, B =
+       ``batch``; its line likewise.
+    3. ``tools/bench_stages`` at ``edge`` with the ``nms_select`` arm and
+       4. ``tools/bench_train_stages`` at ``train_edge``: the cumulative
+       arms' medians rise within their quartiles.
+    5. ``tools/profile_model`` of the eager request and (``--train``)
+       the eager step, ``profile_runs`` and 1 runs, their traces under
+       ``trace_dir`` (a temporary directory by default): at least
+       ``PROFILE_SHARE`` of the kernel time in named sections, kernels 1
+       and 2 in the decode and ROI sections, 2b in the ROI section's
+       backward.
+    6. ``tools/roofline_bound`` of both traces: no section's bound above
+       ``BOUND_SLACK`` x its time.
+
+    On the CPU (a rehearsal) the device values are null and held so.
+    Returns (the launches of kernels 1, 2 and 2b counted, each tool's
+    ``(main's return value, standard output)`` by name)."""
+    import tempfile
+
+    from centermask2_tpu_torch.tools import (bench, bench_stages,
+                                             bench_train, bench_train_stages,
+                                             profile_model, roofline_bound)
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    counts, out = {}, {}
+    argv = ["--device", str(dev), *opts]
+    rc, text = out["bench"] = run_tool(
+        bench.main, argv, {**BENCH_ENV, "BENCH_EDGE": edge}, counts)
+    line = json_line(text, "bench")
+    keys = BENCH_KEYS + ((f"square_{edge}_ms", f"square_{edge}_mfu")
+                         if edge >= 1088 else ())
+    check_bench_line(line, keys, cuda, "bench")
+    if rc != 0 or line["nms_kernel_equal"] is not (True if cuda else None):
+        raise AssertionError(f"bench: exit {rc}, nms_kernel_equal "
+                             f"{line['nms_kernel_equal']}")
+    log(f"  bench: {line['value']} ms at {line['canvas']}, square "
+        f"{line.get(f'square_{edge}_ms')} ms, mfu {line['mfu']}, sustained "
+        f"{line['sustained_images_per_sec']} img/s; kernel 1 equal to its "
+        f"plain version on the 1000-box set ({line['nms_kernel_keep_count']} "
+        "kept)")
+
+    train_env = {**BENCH_ENV, "BENCH_EDGE": train_edge, "BENCH_BATCH": batch}
+    _, text = out["bench_train"] = run_tool(bench_train.main, argv,
+                                            train_env, counts)
+    line = json_line(text, "bench_train")
+    check_bench_line(line, BENCH_TRAIN_KEYS, cuda, "bench_train")
+    log(f"  bench_train: {line['value']} ms a step, {line['imgs_per_sec']} "
+        f"img/s, mfu {line['mfu']}, peak {line['peak_memory_gib']} GiB")
+
+    rows, _ = out["bench_stages"] = run_tool(
+        bench_stages.main, argv,
+        {**BENCH_ENV, "BENCH_EDGE": edge, "BENCH_NMS": 1}, counts)
+    check_rising([(r["name"], r) for r in rows["stages"]], "bench_stages",
+                 cuda)
+    rows, _ = out["bench_train_stages"] = run_tool(
+        bench_train_stages.main, argv, train_env, counts)
+    st = rows["stages"]
+    check_rising([(n, st[n]) for n in ("loss-fwd", "loss-fwd+bwd",
+                                       "full-step")], "bench_train_stages",
+                 cuda)
+    check_rising([(n, st[n]) for n in ("fcos-only fwd+bwd",
+                                       "loss-fwd+bwd")],
+                 "bench_train_stages, the ROI branch", cuda)
+
+    with contextlib.ExitStack() as stack:
+        root = trace_dir or stack.enter_context(tempfile.TemporaryDirectory())
+        for train, runs in ((False, profile_runs), (True, 1)):
+            what = "profile_model" + (" --train" if train else "")
+            trace = os.path.join(root, "train" if train else "request")
+            pargv = ["--device", str(dev), "--runs", str(runs), "--top",
+                     "15", "--trace-dir", trace, "--batch",
+                     str(batch if train else 1), *(["--train"] * train),
+                     "TPU.FIXED_EDGE_SIZE", str(train_edge if train
+                                                else edge), *opts]
+            summary, _ = out[what] = run_tool(profile_model.main, pargv, {},
+                                              counts)
+            check_profile(summary, cuda, train, what)
+            rargv = [trace, "--top", "10"]
+            if not cuda:  # a CPU trace names no card
+                rargv += ["--peak-tflops", "1", "--peak-gbps", "100"]
+            table, _ = out["roofline_bound" + " --train" * train] = \
+                run_tool(roofline_bound.main, rargv, {}, counts)
+            if cuda:
+                check_bounds(table, "roofline_bound "
+                             + ("step" if train else "request"))
+    return counts, out
+
+
 def flagship_phases(dev, nms_err: int, roi_err: float):
     """``[serve]``, ``[time]``, ``[graphs]``, ``[serving]``, ``[eval]``,
     ``[export]`` and ``[train]``: the V-39 flagship and its serving
@@ -4607,11 +4870,18 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], bb_errs[row["name"]],
                                  kp_errs[row["name"]], dp_errs[row["name"]],
                                  dep_errs.get(row["name"], 0))
+    free_cuda()
+    log(f"[bench] the port's measuring tools (tools/bench, bench_train, "
+        f"bench_stages, bench_train_stages, profile_model, roofline_bound) "
+        f"on the flagship at full width, bf16, random weights (seed 0): "
+        f"800x1088 and {FIXED}x{FIXED} requests, {FIXED}x{FIXED} B="
+        f"{TRAIN_BATCH} steps ({card})")
+    bench_launches, _ = bench_phase(dev)
 
     for row in (nms, roi, bwd):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             *v39_launches, bb_launches, kp_launches, dp_launches,
-            dep_launches))
+            dep_launches, bench_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
