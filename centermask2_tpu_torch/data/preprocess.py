@@ -29,6 +29,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.native import BUILD_ROOT, build_library
 
 MIN_EDGE_SIZE = 800
@@ -223,12 +224,14 @@ def s2d_pack_u8(image_hwc: np.ndarray,
     for the on-device normalization path (``CenterMask._normalize_u8_s2d``),
     a quarter of the f32 canvas's bytes; bit-equal to
     ``s2d_pack_u8_plain``. ``fixed_size``: the canvas, an int (square) or
-    an (Fh, Fw) pair (rectangular, see s2d_pack_u8_tight)."""
+    an (Fh, Fw) pair (rectangular, see s2d_pack_u8_tight). The native
+    pass is the ``tracing`` span ``pack``."""
     fh, fw = _u8_canvas(image_hwc, fixed_size)
     h, w, C = image_hwc.shape
     out = np.empty((fh // 4 + 1, fw // 4 + 1, 16 * C), np.uint8)
-    _s2d_lib().s2d_pack_u8_rect(np.ascontiguousarray(image_hwc, np.uint8),
-                                h, w, C, fh, fw, out)
+    with tracing.span("pack"):
+        _s2d_lib().s2d_pack_u8_rect(
+            np.ascontiguousarray(image_hwc, np.uint8), h, w, C, fh, fw, out)
     return out[None]
 
 

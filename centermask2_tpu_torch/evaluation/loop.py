@@ -39,6 +39,7 @@ from ..data.prefetch import prefetch
 from ..export.captured import CapturedInference, supports_graphs
 from ..parallel.distributed import (all_gather_objects, is_main_process,
                                     process_count, process_subset)
+from ..utils import tracing
 from .coco_eval import COCOEvaluator, COCOGt
 
 
@@ -48,17 +49,18 @@ def _to_host(out, cuda: bool) -> Tuple[Dict[str, torch.Tensor],
     pinned buffers, with an event recorded behind the copies. The copy is
     queued before the next request: a captured program's outputs are the
     static buffers its next replay rewrites. On the CPU the outputs are
-    the host's already."""
-    fields = {k: t for k, t in out._asdict().items() if t is not None}
-    if not cuda:
-        return fields, None
-    host = {}
-    for k, t in fields.items():
-        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host[k].copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+    the host's already. The ``tracing`` span ``to_host``."""
+    with tracing.span("to_host"):
+        fields = {k: t for k, t in out._asdict().items() if t is not None}
+        if not cuda:
+            return fields, None
+        host = {}
+        for k, t in fields.items():
+            host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host[k].copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
 
 def evaluate_dataset(

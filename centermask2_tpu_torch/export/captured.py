@@ -23,6 +23,19 @@ that fails raises: there is no fallback to the eager call. On a CPU
 model there are no graphs and the class raises; callers run
 ``model.inference`` there.
 
+Each graph also holds the section stamps of ``utils/tracing.py``: the
+capture, and only the capture, arms ``tracing.mark``, so the graph
+records six one-thread stamp kernels (``csrc/stamp.cu``): the start of
+``inference`` and the end of its stem, backbone, FPN and FCOS head,
+decode and ROI heads. Every replay then writes one row of the object's
+ring (``tracing.Ring``, 16384 rows of the program's key and six
+``%globaltimer`` stamps, made at the first capture): a row a replay, the
+newest kept when it wraps, read by ``tracing.replay_sections()`` (which
+keeps the newest ring after the object is dropped). The stamps run in
+the replay's stream order, so requests in flight do not mix their rows.
+Each capture's seconds, warm-ups included, add to ``capture_s`` and to
+the process's ``tracing`` counter of the same name.
+
 ``CudaGraphs`` is the CUDA side of capturing (side stream, pool,
 ``torch.cuda.graph``); ``train/trainer.py`` captures the train step
 through it too. A caller may pass another object with the same two
@@ -35,6 +48,8 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..utils import tracing
 
 WARMUP_CALLS = 2  # side-stream calls of the forward before each capture
 
@@ -80,7 +95,8 @@ class CudaGraphs:
 class CapturedInference:
     """``model.inference`` replayed from one CUDA graph per input
     signature (the module docstring). Call it as ``model.inference``:
-    ``(images, image_sizes=None, valid_hw=None, canvas_hw=None)``."""
+    ``(images, image_sizes=None, valid_hw=None, canvas_hw=None)``. Each
+    graph records the section stamps (the module docstring)."""
 
     def __init__(self, model, *, graphs=None):
         dev = next(model.parameters()).device
@@ -94,6 +110,7 @@ class CapturedInference:
         self.graphs = graphs
         self.programs: Dict[tuple, tuple] = {}
         self.capture_s = 0.0  # warm-up and capture, all graphs
+        self.ring: Optional[tracing.Ring] = None  # made at the first capture
 
     def __len__(self) -> int:
         return len(self.programs)
@@ -126,7 +143,16 @@ class CapturedInference:
         def run():
             return self.model.inference(*static, canvas)
 
+        def staged():  # armed while captured, and where a replay reruns it
+            with tracing.armed(self.ring, key):
+                return run()
+
         self.graphs.warm_up(run, WARMUP_CALLS)
-        graph, out = self.graphs.capture(run)
-        self.capture_s += time.perf_counter() - t0
+        if self.ring is None:
+            self.ring = tracing.Ring(self.device)
+        key = len(self.programs)
+        graph, out = self.graphs.capture(staged)
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        tracing.count("capture_s", dt)
         return static, graph, out

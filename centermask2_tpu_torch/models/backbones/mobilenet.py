@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ...layers import Conv2d, FrozenBatchNorm
+from ...utils import tracing
 
 # (expand_ratio t, out_channels c, repeats n, stride s), JAX mobilenet.py:20-28
 INVERTED_RESIDUAL_SETTING = (
@@ -95,6 +96,7 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = relu6(self.features0_bn(self.features0_conv(x.float())))
+        tracing.mark("stem")
         outputs: Dict[str, torch.Tensor] = {}
         for idx in range(1, self.n_blocks + 1):
             x = getattr(self, f"features{idx}")(x)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers import ConvNormAct
+from ...utils import tracing
 
 RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
                        152: (3, 8, 36, 3)}
@@ -113,6 +114,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = F.max_pool2d(self.stem_conv1(x), 3, 2, 1)
+        tracing.mark("stem")
         outputs: Dict[str, torch.Tensor] = {}
         if "stem" in self.out_features:
             outputs["stem"] = x

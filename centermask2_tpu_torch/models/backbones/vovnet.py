@@ -26,6 +26,7 @@ from torch import nn
 
 from ...layers import (Conv2d, ConvNormAct, DeformConvBlock, eSEModule,
                        get_norm, max_pool2d_ceil)
+from ...utils import tracing
 
 # Stage specs (reference vovnet.py:30-108, JAX vovnet.py:35-72).
 VoVNet19_slim_dw_eSE = dict(
@@ -399,6 +400,7 @@ class VoVNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)
+        tracing.mark("stem")
         outputs: Dict[str, torch.Tensor] = {}
         if "stem" in self.out_features:
             outputs["stem"] = x

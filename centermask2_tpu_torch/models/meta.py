@@ -38,6 +38,7 @@ it.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -47,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import CfgNode
 from ..layers import BatchNorm, no_stat_updates, reset_parameters
+from ..utils import tracing
 from ..utils.comm import Group, mean_reduce
 from ..utils.device import DeviceLike, resolve_device
 from ..ops import masked_topk
@@ -293,6 +295,7 @@ class CenterMask(nn.Module):
                                    context_fn=_remat_contexts)
         else:
             bottom_up = self.backbone(x)
+        tracing.mark("backbone")
         return self.fpn([bottom_up[f] for f in self.fpn_in_features])
 
     def _fcos_raw(self, feats: Dict[str, torch.Tensor]):
@@ -301,12 +304,15 @@ class CenterMask(nn.Module):
         shapes = [(f.shape[2], f.shape[3]) for f in fcos_feats]
         locations = compute_locations(shapes, self.fpn_strides,
                                       fcos_feats[0].device)
+        tracing.mark("fpn_head")
         return locations, logits, reg, ctr
 
     def _decode(self, locations, logits, reg, ctr, training: bool = False):
-        return decode_batch(locations, logits, reg, ctr, self.fpn_strides,
-                            **(self.train_decode_kwargs if training
-                               else self.decode_kwargs))
+        out = decode_batch(locations, logits, reg, ctr, self.fpn_strides,
+                           **(self.train_decode_kwargs if training
+                              else self.decode_kwargs))
+        tracing.mark("decode")
+        return out
 
     def forward(self, images: torch.Tensor,
                 image_sizes: Optional[torch.Tensor] = None,
@@ -394,7 +400,9 @@ class CenterMask(nn.Module):
         uint8 s2d input on the device. ``canvas_hw``: the deployment
         canvas (H, W) a TIGHT s2d pack is zero-padded back to; without it
         the program runs at the pack's own canvas. A uint8 input takes
-        the on-device normalization, chosen by its dtype."""
+        the on-device normalization, chosen by its dtype. A captured call
+        records the section stamps (``utils/tracing.py``)."""
+        tracing.mark("start")
         images = self._pad_to_canvas(images, canvas_hw)
         B = images.shape[0]
         H, W = self.canvas_hw(images)
@@ -442,7 +450,7 @@ class CenterMask(nn.Module):
         boxes_out = torch.where(proposals.valid[..., None],
                                 proposals.pred_boxes,
                                 torch.zeros_like(proposals.pred_boxes))
-        return InferenceOutputs(
+        out = InferenceOutputs(
             locations=proposals.locations,
             mask_scores=mask_scores,
             pred_boxes=boxes_out,
@@ -452,6 +460,8 @@ class CenterMask(nn.Module):
             valid=proposals.valid,
             pred_keypoints=pred_keypoints,
         )
+        tracing.mark("roi")
+        return out
 
     @torch.no_grad()
     def inference_batched(self, images: torch.Tensor,
@@ -742,7 +752,9 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
     in eval mode, with parameters drawn from ``seed`` by the JAX
     package's initializers. Load real weights afterwards with
     ``checkpoint.from_jax.load_jax_params``. Training takes the same
-    model; only BN and SyncBN behave differently in train mode."""
+    model; only BN and SyncBN behave differently in train mode. Its
+    seconds add to the ``tracing`` counter ``model_build_s``."""
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     kind = backbone_type(cfg)
     if cfg.TPU.APPROX_TOPK:
@@ -835,4 +847,6 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
     )
     reset_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
+    model = model.to(dev).eval()
+    tracing.count("model_build_s", time.perf_counter() - t0)
+    return model

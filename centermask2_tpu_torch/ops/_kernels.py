@@ -19,6 +19,12 @@ functions as the CUDA implementations of the operators
 ``cm2::nms_keep_sorted``, ``cm2::roi_align`` and
 ``cm2::roi_align_backward``, whose CPU implementations are the plain
 PyTorch versions.
+
+``csrc/stamp.cu`` is no model kernel: ``section_stamp`` writes the
+device's ``%globaltimer`` into the section ring of a captured program
+(``utils/tracing.py``, whose ``Ring`` is its plain version on the CPU).
+Its launches are counted on the device, by the ring's cursor, and not
+in ``launch_counts``: a replay launches it without this function.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # per-source extra flags: the NMS IoU must not be contracted into FMAs
-EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": []}
+EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": [], "stamp": []}
 
 MAX_NMS_N = 8192
 MAX_ROI_SAMPLES = 64  # kMaxSamples in csrc/roi_align.cu: o * s per axis
@@ -136,6 +142,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "nms":
         lib.cm2_nms_keep_sorted.argtypes = [vp, vp, vp, vp, ci, ci, cf, vp]
         lib.cm2_nms_keep_sorted.restype = ci
+    elif name == "stamp":
+        lib.cm2_section_stamp.argtypes = [vp, vp, ci, ci, ci,
+                                          ctypes.c_longlong, ci, vp]
+        lib.cm2_section_stamp.restype = ci
     else:
         lib.cm2_roi_align.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                       vp, ci, ci, ci, ci, vp, vp]
@@ -361,3 +371,26 @@ def roi_tap_windows(boxes: torch.Tensor, batch_indices: torch.Tensor,
         output_size, sampling_ratio, int(aligned), windows.data_ptr(), stream)
     _check(rc, "cm2_roi_tap_windows")
     return windows
+
+
+def section_stamp(ring: torch.Tensor, cursor: torch.Tensor, slot: int,
+                  key: int, last: bool) -> None:
+    """``csrc/stamp.cu``: ``%globaltimer`` into word ``1 + slot`` of the
+    ring's row ``cursor % rows`` (``ring``: (rows, width) int64;
+    ``cursor``: (1,) int64); slot 0 writes ``key`` into word 0 too, and
+    ``last`` advances the cursor. Recorded into a CUDA graph, each replay
+    stamps the row its cursor then points at."""
+    _require_cuda("section_stamp", ring, cursor)
+    if ring.dtype != torch.int64 or cursor.dtype != torch.int64 or \
+            ring.dim() != 2 or cursor.numel() != 1:
+        raise ValueError("section_stamp: ring (rows, width) int64 and a "
+                         "(1,) int64 cursor required")
+    rows, width = ring.shape
+    if not 0 <= slot < width - 1:
+        raise ValueError(f"section_stamp: slot {slot} outside the ring's "
+                         f"{width - 1} stamps")
+    stream = torch.cuda.current_stream(ring.device).cuda_stream
+    rc = _lib("stamp").cm2_section_stamp(
+        ring.data_ptr(), cursor.data_ptr(), rows, width, slot, int(key),
+        int(last), stream)
+    _check(rc, "cm2_section_stamp")

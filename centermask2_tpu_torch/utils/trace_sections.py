@@ -16,6 +16,17 @@ the SGD update, e.g. ``CenterMask.inference/CenterMask.features/backbone/
 OSA2_1/layer0/conv``. An op of the backward has its forward op's path
 behind ``transpose/`` (JAX's ``transpose(jvp(...))``), and its section
 gets the `` [bwd]`` suffix.
+
+A graph replay carries no module paths, so ``SECTIONS`` cannot bucket its
+kernels. ``REPLAY_SECTIONS`` are the five spans that the section stamps
+of a captured serving program time instead (``utils/tracing.py``), each
+one or more of the eager sections above:
+
+- ``stem``: ``host/normalize+s2d`` and the backbone's stem;
+- ``backbone``: the rest of ``backbone``;
+- ``fpn_head``: ``fpn`` and ``fcos_head``;
+- ``decode``: ``decode+nms``;
+- ``roi``: ``roi+mask+maskiou``, ``keypoint`` and the outputs' assembly.
 """
 
 from __future__ import annotations
@@ -32,6 +43,9 @@ SECTIONS = (
     ("losses/assign", ("CenterMask.loss", "CenterMask._mask_losses")),
     ("optimizer", ("optimizer",)),
 )
+
+
+REPLAY_SECTIONS = ("stem", "backbone", "fpn_head", "decode", "roi")
 
 
 def section_of(path: str, unmatched: str = "(unattributed)") -> str:

@@ -29,7 +29,10 @@ Phases, in order:
             difference names its worst element); median times of kernel
             and plain version on synthetic inputs (NMS also at N = 2048
             and 8192 with B = 2; ROIAlign also on one tiny box repeated,
-            and at s = 4).
+            and at s = 4); the section stamp (``check_section_stamp``):
+            two CUDA graphs of the six stamps replayed 13 times into a
+            ring of 5 rows, against the plain ``tracing.Ring`` on the
+            host driven by the same calls.
 4. serve:   4 requests (3 at 800x1088, 1 at 1344x1344) in bf16 through
             ``build_centermask`` + ``inference``, with the launch counts
             reset before and read after (each kernel once per request),
@@ -53,7 +56,16 @@ Phases, in order:
             its worst difference; per-request ms (bf16) with the input's
             and outputs' copies, host enqueue, device ms per replay and
             idle share beside the eager medians of ``time``; capture
-            seconds and pool memory.
+            seconds and pool memory. Every ``graph_requests`` program
+            (here and in the later phases) is held to its section ring
+            (``check_ring_rows``): one row a call with its program's key
+            and its six stamps non-decreasing, each row's first stamp at
+            or after the row before it ended (a stamp that did not run
+            would leave an earlier time), and on the card the five
+            sections summed within ``SECTION_COVER`` of the CUDA events
+            around a replay. The profiler does not count the stamp
+            kernels: it loses a few records of a replay's first kernels
+            now and then, and the ring's cursor counts them exactly.
 7. serving: the serving config (``zy_model_serving.yaml``) built with the
             parameters of ``serve``: a 1333x800 uint8 image packed tight
             on the host, padded back and normalized on the device,
@@ -215,8 +227,11 @@ Phases, in order:
             of ``serve``, ``graphs``, ``serving``, ``eval``, ``export``,
             ``train``, ``backbones``, ``keypoints``, ``parallel``'s
             first part, ``deploy`` and ``bench`` (the launch functions'
-            counts: eager launches and captures, not replays), then the
-            last line ``{"ok": true, "device": {...}}``.
+            counts: eager launches and captures, not replays) and
+            ``section_stamp_launches``, six a row of the rings checked
+            (``STAMP_ROWS``: the stamp check's and every
+            ``graph_requests`` program's), then the last line
+            ``{"ok": true, "device": {...}}``.
 
 A failing phase raises, and the run exits non-zero without the last line.
 It also exits non-zero, printing no result, with no CUDA device or when
@@ -906,6 +921,64 @@ def build_model(cfg, dev):
     return model
 
 
+# the section stamp's check: two programs' keys, replayed in this order
+# into a ring of STAMP_CHECK_ROWS rows (it wraps twice)
+STAMP_CHECK_KEYS = (0, 1, 1, 0, 1, 0, 0, 1, 0, 1, 1, 0, 0)
+STAMP_CHECK_ROWS = 5
+# rows of the section rings checked: six stamp launches each
+STAMP_ROWS = [0]
+
+
+def check_section_stamp(dev) -> None:
+    """The section stamp (``csrc/stamp.cu``) against its plain version,
+    ``tracing.Ring`` on the host: one CUDA graph of the six stamps a
+    program key, replayed in the order of ``STAMP_CHECK_KEYS`` into a
+    ring of ``STAMP_CHECK_ROWS`` rows, and the host ring driven by the
+    same calls. Each replay advances the cursor once; after the wraps
+    both rings hold the newest rows, with the same keys, each row's
+    stamps non-decreasing and the rows' first stamps rising oldest
+    first."""
+    from centermask2_tpu_torch.utils import tracing
+
+    def stamps(ring, key):
+        with tracing.armed(ring, key):
+            for name in tracing.STAMPS:
+                tracing.mark(name)
+
+    ring = tracing.Ring(dev, rows=STAMP_CHECK_ROWS)
+    plain = tracing.Ring("cpu", rows=STAMP_CHECK_ROWS)
+    graphs = {}
+    for key in sorted(set(STAMP_CHECK_KEYS)):
+        graphs[key] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[key]):
+            stamps(ring, key)
+    if int(ring.cursor) != 0:
+        raise AssertionError(f"section stamp: a capture advanced the "
+                             f"cursor to {int(ring.cursor)}")
+    for i, key in enumerate(STAMP_CHECK_KEYS):
+        graphs[key].replay()
+        stamps(plain, key)
+        if int(ring.cursor) != i + 1:
+            raise AssertionError(f"section stamp: cursor {int(ring.cursor)}"
+                                 f" after {i + 1} replays")
+    got, want = ring.read(), plain.read()
+    n = len(STAMP_CHECK_KEYS)
+    if got[:, 0].tolist() != want[:, 0].tolist() or \
+            want[:, 0].tolist() != list(STAMP_CHECK_KEYS[-STAMP_CHECK_ROWS:]):
+        raise AssertionError(f"section stamp: keys {got[:, 0].tolist()}, "
+                             f"plain {want[:, 0].tolist()}")
+    if not ((np.diff(got[:, 1:], axis=1) >= 0).all()
+            and (np.diff(got[:, 1]) > 0).all()):
+        raise AssertionError(f"section stamp: stamps out of order {got}")
+    STAMP_ROWS[0] += n
+    us = np.diff(got[:, 1:], axis=1).mean() * 1e-3
+    log(f"  section stamp: {n} replays of two graphs into a ring of "
+        f"{STAMP_CHECK_ROWS} rows: cursor {n}, the newest rows' keys "
+        f"{got[:, 0].tolist()} as the plain ring's, each row's stamps "
+        f"non-decreasing, rows oldest first; {us:.2f} us a stamp after "
+        f"the one before it in a replay ({card_line()})")
+
+
 def check_outputs(out, B: int, K: int, what: str) -> int:
     shapes = {"locations": (B, K, 2), "mask_scores": (B, K),
               "pred_boxes": (B, K, 4), "pred_classes": (B, K),
@@ -1311,6 +1384,69 @@ def captured_window(prog, x_host, seconds: float) -> dict:
             "device": a.elapsed_time(b) / reps}
 
 
+# the five sections summed over the CUDA events around a replay: at most
+# the events' time (less the input's copy and the launch), at least 98%
+SECTION_COVER = (0.98, 1.001)
+SECTION_COVER_REPLAYS = 5
+
+
+class Counted:
+    """A captured program with its calls counted (``calls``)."""
+
+    def __init__(self, prog):
+        self.prog, self.device, self.calls = prog, prog.device, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.prog(*args)
+
+
+def check_ring_rows(prog, row0: int, calls: int, key: int, what: str,
+                    run=None) -> None:
+    """The section ring of ``prog`` (``utils/tracing.py``) after
+    ``calls`` calls of its program ``key`` from cursor ``row0``: one row
+    a call, each with ``key`` and non-decreasing stamps, starting at or
+    after the row before it ended (the calls run in stream order). With
+    ``run`` (on the card), ``SECTION_COVER_REPLAYS`` calls more, each
+    between CUDA events behind a device sleep (the replay queued before
+    the first event): the five sections summed within ``SECTION_COVER``
+    of the events' time."""
+    ring = prog.ring
+    n = int(ring.cursor) - row0
+    if n != calls or calls > ring.rows:
+        raise AssertionError(f"{what}: {n} ring rows for {calls} calls")
+    rows = ring.read()[-calls:]
+    if (rows[:, 0] != key).any() or (np.diff(rows[:, 1:], axis=1) < 0).any() \
+            or (rows[1:, 1] < rows[:-1, -1]).any():
+        raise AssertionError(f"{what}: ring rows with keys "
+                             f"{sorted(set(rows[:, 0].tolist()))} for key "
+                             f"{key}, or stamps out of order")
+    note = ""
+    if run is not None:
+        cover = []
+        for _ in range(SECTION_COVER_REPLAYS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(REPLAY_PAD_CYCLES)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            row = ring.read()[-1]
+            cover.append((row[-1] - row[1]) * 1e-6 / a.elapsed_time(b))
+        if not all(SECTION_COVER[0] <= c <= SECTION_COVER[1]
+                   for c in cover):
+            raise AssertionError(f"{what}: the sections cover {cover} of "
+                                 f"the replays' event time")
+        calls += SECTION_COVER_REPLAYS
+        note = (f"; the five sections cover "
+                + ", ".join(f"{c:.4f}" for c in cover)
+                + " of the CUDA events around a replay")
+    STAMP_ROWS[0] += calls
+    log(f"  {what}: {calls} ring rows for {calls} calls, key {key}, "
+        f"stamps non-decreasing{note}")
+
+
 def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
                    eager_ms=None, graphs=None, errs=None,
                    roi_per_request: int = 1) -> dict:
@@ -1327,8 +1463,10 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     errors into ``errs``. With ``window_s``, a captured window of that many
     seconds at each canvas beside the eager median of ``eager_ms`` at
     (H, W), or of an eager window of ``window_s`` where it has none; one
-    line a canvas with the graph pool and the parameter count. Returns
-    the launches counted."""
+    line a canvas with the graph pool and the parameter count. After each
+    canvas the program's section ring (``check_ring_rows``): a row a
+    call, with the canvas's program key (its index in ``canvases``).
+    Returns the launches counted."""
     from centermask2_tpu_torch.export import CapturedInference
     from centermask2_tpu_torch.export.captured import WARMUP_CALLS
     from centermask2_tpu_torch.ops import _kernels
@@ -1344,10 +1482,13 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         torch.cuda.empty_cache()
         r0 = torch.cuda.memory_reserved()
     prog = CapturedInference(model, graphs=graphs)
+    call = Counted(prog)
     rows = []
-    for seed, H, W in canvases:
+    for key, (seed, H, W) in enumerate(canvases):
         img = make_image(seed, H, W, dev)
         what = f"{name} {short} {H}x{W}"
+        row0 = 0 if prog.ring is None else int(prog.ring.cursor)
+        calls0 = call.calls
         outs = []
         _kernels.reset_launch_counts()
         seen, peak = eager_peak(lambda: record_launches(
@@ -1355,7 +1496,7 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         counts = [_kernels.launch_counts()]
         for _ in range(2):  # the warm-up and capture, then a replay
             _kernels.reset_launch_counts()
-            got = prog(img)
+            got = call(img)
             counts.append(_kernels.launch_counts())
         want = [(n, n * roi_per_request) for n in (1, WARMUP_CALLS + 1, 0)]
         if [(c["nms"], c["roi_align"]) for c in counts] != want:
@@ -1395,11 +1536,11 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
                 errs["roi_align"] = max(errs["roi_align"], roi_case(
                     *args[:7], f"{what} request{note}"))
         del seen
-        replay_launches(lambda: prog(img), GRAPH_REPLAYS,
+        replay_launches(lambda: call(img), GRAPH_REPLAYS,
                         ("nms", "roi_align"), f"{what} replays",
                         per_call={"nms": 1, "roi_align": roi_per_request})
         if window_s:
-            r = captured_window(prog, img.cpu().pin_memory(), window_s)
+            r = captured_window(call, img.cpu().pin_memory(), window_s)
             eager = (eager_ms or {}).get((H, W))
             source = "[time]"
             if eager is None:
@@ -1407,6 +1548,9 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
                                        warmup_s=0.5)["median"]
                 source = f"a {window_s} s window"
             rows.append((H, W, r, eager, source))
+        check_ring_rows(prog, row0, call.calls - calls0, key,
+                        f"{what} section ring",
+                        (lambda: call(img)) if cuda else None)
     pool = pool_bytes(r0) if cuda else 0
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {name} {short}: {len(prog)} graphs captured in "
@@ -4821,6 +4965,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.utils import tracing
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -4830,7 +4975,8 @@ def main() -> int:
         f"devices {torch.cuda.device_count()}")
 
     secs = _kernels.build()
-    log(f"[build] both sources (kernels 1, 2 and 2b) built in {secs:.1f} s")
+    log(f"[build] the sources (kernels 1, 2 and 2b, the section stamp) "
+        f"built in {secs:.1f} s")
     for name, text in _kernels.build_logs().items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -4839,6 +4985,7 @@ def main() -> int:
     log("[kernels] each kernel against its plain version on the card")
     nms_err = check_nms(dev)
     roi_err = check_roi_align(dev)
+    check_section_stamp(dev)
 
     # the V-39 phases run f32 without TF32, as their f32 gates (the s2d
     # stem within STEM_TOL, f32 replays against eager) and f32 times
@@ -4887,7 +5034,9 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                for r in (nms, roi, bwd)]}))
+                                for r in (nms, roi, bwd)],
+                    "section_stamp_launches":
+                        len(tracing.STAMPS) * STAMP_ROWS[0]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,6 +32,7 @@ from centermask2_tpu_torch.ops import _kernels  # noqa: E402
 from centermask2_tpu_torch.train import (CapturedTrainStep,  # noqa: E402
                                          make_optimizer, make_train_step,
                                          trainer)
+from centermask2_tpu_torch.utils import tracing  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,7 +69,8 @@ class FakeGraphs:
     """``CudaGraphs``' two methods on the CPU. A capture records without
     running, so ``capture`` runs ``fn`` for its outputs and then writes
     back every tensor of ``state()`` (parameters, momentum, the
-    schedule's count) as it was."""
+    schedule's count) as it was, and the cursor of the newest section
+    ring (``utils/tracing.py``): a capture writes no row."""
 
     def __init__(self, state=lambda: ()):
         self.state = state
@@ -82,10 +84,14 @@ class FakeGraphs:
 
     def capture(self, fn):
         saved = [t.detach().clone() for t in self.state()]
+        ring = tracing._ring
+        cursor = None if ring is None else ring.cursor.clone()
         out = fn()
         with torch.no_grad():
             for t, s in zip(self.state(), saved):
                 t.copy_(s)
+            if ring is not None:
+                ring.cursor.copy_(cursor)
         self.graphs.append(FakeGraph(fn, out))
         return self.graphs[-1], out
 

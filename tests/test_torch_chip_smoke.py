@@ -178,7 +178,8 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
     """``[graphs]`` at 64x64 and 96x64: per dtype and canvas, one launch
     of each kernel by the eager request, 3 at the first call (2 warm-up
     requests and the capture) and none at a replay; the replays equal the
-    eager requests slot by slot."""
+    eager requests slot by slot; each call a row of the section ring with
+    its canvas's program key."""
     from test_torch_captured import FakeGraphs
 
     model = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()),
@@ -198,6 +199,9 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
                      "capture), not by a replay; the replay equals the eager "
                      "request slot by slot, every output bit-equal True") == 4
     assert out.count("graph f32: 2 graphs captured") == 2
+    for key, canvas in enumerate(("64x64", "96x64")):  # the section ring
+        assert out.count(f"{canvas} section ring: 3 ring rows for 3 calls, "
+                         f"key {key}, stamps non-decreasing\n") == 2
 
 
 def test_export_phase_rehearsal(rehearsal, capsys, monkeypatch):
