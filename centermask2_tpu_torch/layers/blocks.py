@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.group_norm import group_norm_f32
+
 GN_EPS = 1e-5
 BN_EPS = 1e-5
 
@@ -98,8 +100,15 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, 1, self.groups)
+        # a channels-last input (the FCOS towers on the card) takes its
+        # weight channels-last in the same cast, as cuDNN's NHWC kernels
+        # read it
+        nhwc = x.dim() == 4 and not x.is_contiguous() and \
+            x.is_contiguous(memory_format=torch.channels_last)
+        w = self.weight.to(dt, memory_format=torch.channels_last if nhwc
+                           else torch.preserve_format)
+        return F.conv2d(x.to(dt), w, b, self.stride, self.padding, 1,
+                        self.groups)
 
 
 class ConvTranspose2d(nn.Module):
@@ -176,23 +185,16 @@ class FrozenBatchNorm(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm(32) with float32 moments and affine, cast back to the
     activation's dtype (JAX ``blocks.py:138-157``; flax upcasts the same
-    way).
-
-    A group of one value (C/G x H x W == 1, e.g. FPN width 32 on a 1x1
-    P7) equals its mean, so JAX returns the bias exactly; F.group_norm
-    refuses such groups at batch 1 and leaves ~1e-5 above it. That case
-    is decided from the static shape and returns the bias broadcast."""
+    way): ``ops/group_norm.py::group_norm_f32``, which also keeps JAX's
+    exact bias for a group of one value."""
 
     def __init__(self, features: int, num_groups: int = 32):
         super().__init__()
         self.gn = nn.GroupNorm(num_groups, features, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if math.prod(x.shape[1:]) == self.gn.num_groups:
-            bias = self.gn.bias.to(x.dtype)
-            return bias.reshape(1, -1, *([1] * (x.dim() - 2))).expand_as(x)
-        return F.group_norm(x.float(), self.gn.num_groups, self.gn.weight,
-                            self.gn.bias, self.gn.eps).to(x.dtype)
+        return group_norm_f32(x, self.gn.num_groups, self.gn.weight,
+                              self.gn.bias, self.gn.eps)
 
 
 class _BNState(nn.Module):

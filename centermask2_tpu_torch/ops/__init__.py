@@ -1,3 +1,4 @@
+from .group_norm import group_norm_relu_op
 from .nms import batched_nms, nms_keep_mask, nms_select
 from .paste_masks import paste_masks
 from .roi_align import (
@@ -8,7 +9,8 @@ from .roi_align import (
 from .select import masked_topk
 
 __all__ = [
-    "batched_nms", "nms_keep_mask", "nms_select", "paste_masks",
+    "batched_nms", "group_norm_relu_op", "nms_keep_mask", "nms_select",
+    "paste_masks",
     "assign_boxes_by_area", "assign_boxes_by_ratio", "multilevel_roi_align",
     "masked_topk",
 ]

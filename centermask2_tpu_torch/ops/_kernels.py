@@ -12,12 +12,13 @@ The launch functions take CUDA tensors only, check device, dtype, shape
 and contiguity, launch on PyTorch's current stream, raise if the C entry
 returns a CUDA error, and add one to their launch count
 (``nms_launches``, ``roi_align_launches``,
-``roi_align_backward_launches``). The counts are host integers: a
-launch recorded into a CUDA graph counts once, at capture, and a replay
-adds nothing. ``ops/nms.py`` and ``ops/roi_align.py`` register these
-functions as the CUDA implementations of the operators
-``cm2::nms_keep_sorted``, ``cm2::roi_align`` and
-``cm2::roi_align_backward``, whose CPU implementations are the plain
+``roi_align_backward_launches``, ``group_norm_relu_launches``). The
+counts are host integers: a launch recorded into a CUDA graph counts
+once, at capture, and a replay adds nothing. ``ops/nms.py``,
+``ops/roi_align.py`` and ``ops/group_norm.py`` register these functions
+as the CUDA implementations of the operators ``cm2::nms_keep_sorted``,
+``cm2::roi_align``, ``cm2::roi_align_backward`` and
+``cm2::group_norm_relu``, whose CPU implementations are the plain
 PyTorch versions.
 
 ``csrc/stamp.cu`` is no model kernel: ``section_stamp`` writes the
@@ -46,29 +47,35 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # per-source extra flags: the NMS IoU must not be contracted into FMAs
-EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": [], "stamp": []}
+EXTRA_FLAGS = {"nms": ["-fmad=false"], "roi_align": [], "group_norm": [],
+               "stamp": []}
 
 MAX_NMS_N = 8192
 MAX_ROI_SAMPLES = 64  # kMaxSamples in csrc/roi_align.cu: o * s per axis
 ROI_AXES_BYTES = 2176  # sizeof(RoiAxes) in csrc/roi_align.cu
+MAX_GN_LEVELS = 8  # kMaxLevels in csrc/group_norm.cu
 
 nms_launches = 0
 roi_align_launches = 0
 roi_align_backward_launches = 0
+group_norm_relu_launches = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     global nms_launches, roi_align_launches, roi_align_backward_launches
+    global group_norm_relu_launches
     nms_launches = 0
     roi_align_launches = 0
     roi_align_backward_launches = 0
+    group_norm_relu_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"nms": nms_launches, "roi_align": roi_align_launches,
-            "roi_align_backward": roi_align_backward_launches}
+            "roi_align_backward": roi_align_backward_launches,
+            "group_norm_relu": group_norm_relu_launches}
 
 
 def _nvcc() -> str:
@@ -142,6 +149,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "nms":
         lib.cm2_nms_keep_sorted.argtypes = [vp, vp, vp, vp, ci, ci, cf, vp]
         lib.cm2_nms_keep_sorted.restype = ci
+    elif name == "group_norm":
+        lib.cm2_group_norm_pairs.argtypes = [ci, ci, vp, ci, ci, ci]
+        lib.cm2_group_norm_pairs.restype = ctypes.c_longlong
+        lib.cm2_group_norm_relu.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci,
+                                            cf, vp, vp, vp, vp, vp]
+        lib.cm2_group_norm_relu.restype = ci
     elif name == "stamp":
         lib.cm2_section_stamp.argtypes = [vp, vp, ci, ci, ci,
                                           ctypes.c_longlong, ci, vp]
@@ -371,6 +384,76 @@ def roi_tap_windows(boxes: torch.Tensor, batch_indices: torch.Tensor,
         output_size, sampling_ratio, int(aligned), windows.data_ptr(), stream)
     _check(rc, "cm2_roi_tap_windows")
     return windows
+
+
+_GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def group_norm_relu(xs: Sequence[torch.Tensor], weight: torch.Tensor,
+                    bias: torch.Tensor, num_groups: int,
+                    eps: float) -> List[torch.Tensor]:
+    """Kernel 3 (csrc/group_norm.cu): ``relu(group_norm(x))`` of each
+    level of ``xs``, (N, C, H, W) maps alike in N and C, channels-last
+    contiguous, f32 or bf16, with f32 statistics and (C,) f32 ``weight``
+    and ``bias``; returns one channels-last map a level in its dtype. One
+    call is one launch of the statistics, finalize and apply kernels over
+    every level; the workspace (a (mean, M2) pair a group of each
+    statistics block, a scale and a shift a channel of each level and
+    sample) is allocated here."""
+    global group_norm_relu_launches
+    xs = list(xs)
+    if not 0 < len(xs) <= MAX_GN_LEVELS:
+        raise ValueError(f"group_norm_relu: 1 to {MAX_GN_LEVELS} levels, "
+                         f"got {len(xs)}")
+    dev = xs[0].device
+    for t in (*xs, weight, bias):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"group_norm_relu: every tensor must be on one "
+                             f"CUDA device, got {t.device}")
+    dt = xs[0].dtype
+    if dt not in _GN_DTYPES or any(x.dtype != dt for x in xs):
+        raise ValueError(f"group_norm_relu: levels must share f32 or bf16, "
+                         f"got {[x.dtype for x in xs]}")
+    N, C = xs[0].shape[:2]
+    for x in xs:
+        if x.dim() != 4 or x.shape[:2] != (N, C) or x.numel() == 0:
+            raise ValueError("group_norm_relu: levels must be nonempty "
+                             "(N, C, H, W) alike in N, C")
+        if not x.is_contiguous(memory_format=torch.channels_last) or \
+                x.data_ptr() % 16:
+            raise ValueError("group_norm_relu: levels must be channels-last "
+                             "contiguous and 16-byte aligned")
+    for t in (weight, bias):
+        if t.dtype != torch.float32 or tuple(t.shape) != (C,) or \
+                not t.is_contiguous():
+            raise ValueError(f"group_norm_relu: weight and bias must be "
+                             f"({C},) f32, got {t.dtype} {tuple(t.shape)}")
+    L = len(xs)
+    pos = (ctypes.c_int * L)(*[x.shape[2] * x.shape[3] for x in xs])
+    lib = _lib("group_norm")
+    pairs = lib.cm2_group_norm_pairs(_GN_DTYPES[dt], L,
+                                     ctypes.cast(pos, ctypes.c_void_p), N,
+                                     C, int(num_groups))
+    if pairs < 0:
+        raise ValueError(f"group_norm_relu: C = {C} in {num_groups} groups "
+                         f"is outside the kernel's reach (C a multiple of "
+                         f"the groups and of 16 bytes of {dt}, at most 256 "
+                         f"such vectors)")
+    ys = [torch.empty_like(x) for x in xs]
+    off = (2 * pairs + 3) // 4 * 4  # the scale rows 16-byte aligned
+    work = torch.empty(off + 2 * L * N * C, dtype=torch.float32, device=dev)
+    xp = (ctypes.c_void_p * L)(*[x.data_ptr() for x in xs])
+    yp = (ctypes.c_void_p * L)(*[y.data_ptr() for y in ys])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.cm2_group_norm_relu(
+        _GN_DTYPES[dt], L, ctypes.cast(xp, ctypes.c_void_p),
+        ctypes.cast(yp, ctypes.c_void_p), ctypes.cast(pos, ctypes.c_void_p),
+        N, C, int(num_groups), float(eps), weight.data_ptr(),
+        bias.data_ptr(), work.data_ptr(), work[off:].data_ptr(),
+        stream)
+    _check(rc, "cm2_group_norm_relu")
+    group_norm_relu_launches += 1
+    return ys
 
 
 def section_stamp(ring: torch.Tensor, cursor: torch.Tensor, slot: int,

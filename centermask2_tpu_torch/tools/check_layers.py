@@ -18,8 +18,9 @@ the same module, so a dump of each stack compares by name: the flax
 module path (the port's module names are the JAX package's, the tree
 ``checkpoint/from_jax.py`` maps), then ``__call__[i]`` for the i-th call
 of the module (the FCOS head's modules, shared over the levels, are
-called once a level), then the output's structure (``[j]`` into a tuple
-or list, ``/key`` into a dict). 4-D activations are stored NHWC, as JAX
+called once a level; the port's towers, called once over the list of
+levels, are keyed as JAX's, a call a level), then the output's
+structure (``[j]`` into a tuple or list, ``/key`` into a dict). 4-D activations are stored NHWC, as JAX
 computes them; the root's ``__call__[0][j]`` are the model's outputs.
 ``--filter`` keeps the modules whose own name contains the string (the
 root then drops out, as in JAX). JAX keys with no counterpart in the
@@ -30,12 +31,16 @@ BatchNorm inside the norm wrappers, whose outputs are the wrappers' own
 (the port's wrappers hold those parameters and are hooked themselves).
 The port's dump alone holds the keypoint head's deconv
 (``.../score_lowres/__call__[i]``), which JAX computes on the head with
-no module of its own. The file is written uncompressed.
+no module of its own. A dump on the GPU lacks the towers' GroupNorms
+(``.../cls_tower/norm<i>/__call__[l]``): there kernel 3 computes a tower
+layer's GroupNorm and ReLU in one pass (``models/fcos/head.py``) and
+writes no norm output. The file is written uncompressed.
 
 ``compare`` sorts the layers both dumps hold by cosine similarity, flags
-``<-- DRIFT`` below ``--threshold`` and exits 1 if any layer is below it;
-a layer whose shapes differ scores 0. The keys of only one dump are
-counted and the first ``--show`` listed. ``dump`` runs on the GPU unless
+``<-- DRIFT`` below ``--threshold`` and exits 1 if any layer is below it,
+or if an FCOS tower's output is in one dump only; a layer whose shapes
+differ scores 0. The keys of only one dump are counted (the tower norms
+among them apart) and the first ``--show`` listed. ``dump`` runs on the GPU unless
 ``--device cpu``; without ``--weights`` the weights are random, from seed
 0.
 """
@@ -43,6 +48,7 @@ counted and the first ``--show`` listed. ``dump`` runs on the GPU unless
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -52,6 +58,10 @@ from .parity_check import cos_sim
 
 # port modules where flax records parameters, not an activation
 NOT_ACTIVATIONS = ("ese.fc",)
+# an FCOS tower's output at one level, and its GroupNorms' (none on the
+# GPU, where kernel 3 fuses them with their ReLU)
+TOWER_OUTPUT = re.compile(r"(.+/)?\w+_tower/__call__\[\d+\]")
+TOWER_NORM = re.compile(r"(.+/)?\w+_tower/norm\d+/__call__\[\d+\]")
 
 
 def flatten_intermediates(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -95,11 +105,17 @@ def capture_layers(model, x, name_filter: Optional[str] = None
     under its JAX key (module docstring)."""
     import torch
 
+    from ..models.fcos.head import Tower
+
     calls: Dict[str, list] = {}
 
     def hook_for(name):
         def hook(module, args, output):
-            calls.setdefault(name, []).append(_to_host(output))
+            outs = calls.setdefault(name, [])
+            if isinstance(module, Tower):  # one call over the levels
+                outs.extend(_to_host(o) for o in output)
+            else:
+                outs.append(_to_host(output))
         return hook
 
     handles = [
@@ -190,19 +206,24 @@ def cmd_dump(args, opts) -> int:
 def print_comparison(rows, only_a, only_b, threshold: float,
                      show: int) -> int:
     """Print ``compare_layers``' result; returns the layers below
-    ``threshold``."""
+    ``threshold`` and the FCOS tower outputs of one dump only."""
+    norms = sum(1 for k in only_a + only_b if TOWER_NORM.fullmatch(k))
     print(f"{len(rows)} layers compared, {len(only_a) + len(only_b)} only "
-          f"in one dump")
+          f"in one dump ({norms} of them FCOS tower norms)")
     for which, keys in (("a", only_a), ("b", only_b)):
         for k in keys[:show]:
             print(f"  only in {which}: {k}")
+    towers = [k for k in only_a + only_b if TOWER_OUTPUT.fullmatch(k)]
+    if towers:
+        print(f"{len(towers)} FCOS tower outputs in one dump only, e.g. "
+              f"{towers[0]}")
     print(f"{'cos_sim':>10} {'mae':>12}  layer")
     for c, m, k in rows[:show]:
         flag = " <-- DRIFT" if c < threshold else ""
         print(f"{c:>10.6f} {m:>12.3e}  {k}{flag}")
     n_bad = sum(1 for c, _, _ in rows if c < threshold)
     print(f"{n_bad} layers below cosine threshold {threshold}")
-    return n_bad
+    return n_bad + len(towers)
 
 
 def cmd_compare(args, _) -> int:

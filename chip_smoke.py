@@ -29,10 +29,16 @@ Phases, in order:
             difference names its worst element); median times of kernel
             and plain version on synthetic inputs (NMS also at N = 2048
             and 8192 with B = 2; ROIAlign also on one tiny box repeated,
-            and at s = 4); the section stamp (``check_section_stamp``):
-            two CUDA graphs of the six stamps replayed 13 times into a
-            ring of 5 rows, against the plain ``tracing.Ring`` on the
-            host driven by the same calls.
+            and at s = 4); GroupNorm + ReLU (kernel 3,
+            ``check_group_norm``) within tolerance at the FCOS tower's
+            level shapes of a 1344x1344 and an 800x1088 request, bf16 and
+            f32, a batch of 2 at C = 128, groups of one value (relu of the
+            bias exactly), one call captured and replayed on new inputs,
+            and its median time beside the plain chain's, aten's
+            group_norm's and the byte bound; the section stamp
+            (``check_section_stamp``): two CUDA graphs of the six stamps
+            replayed 13 times into a ring of 5 rows, against the plain
+            ``tracing.Ring`` on the host driven by the same calls.
 4. serve:   4 requests (3 at 800x1088, 1 at 1344x1344) in bf16 through
             ``build_centermask`` + ``inference``, with the launch counts
             reset before and read after (each kernel once per request),
@@ -50,8 +56,10 @@ Phases, in order:
             bf16 800x1088 request.
 6. graphs:  the flagship through ``export/captured.py::CapturedInference``
             at 800x1088 and 1344x1344, bf16 and f32: launch counts at the
-            capture (warm-up + capture) and none at a replay, one launch
-            of each kernel per replay by the profiler, the f32 replay
+            capture (warm-up + capture) and none at a replay (kernel 3:
+            ``fused_tower_norms``, 8 calls a V-39 request, 24 at a
+            capture), one launch of kernels 1 and 2 per replay by the
+            profiler, the f32 replay
             against the eager request slot by slot, the bf16 one with
             its worst difference; per-request ms (bf16) with the input's
             and outputs' copies, host enqueue, device ms per replay and
@@ -262,11 +270,24 @@ ROI_REPLACES = "centermask2_tpu/ops/roi_align_pallas.py:46"
 # kernel 2b has no Pallas kernel to replace: JAX computes the ROIAlign
 # VJP in XLA (_separable_feature_grad)
 ROI_BWD_REPLACES = "centermask2_tpu/ops/roi_align.py:325"
+GN_SOURCE = "centermask2_tpu_torch/csrc/group_norm.cu"
+# kernel 3 has no Pallas kernel to replace: JAX runs flax's GroupNorm in
+# XLA, which fuses it with the ReLU after it
+GN_REPLACES = "none: flax GroupNorm in XLA (centermask2_tpu/layers/blocks.py:138)"
 
 # tolerances of the kernel/plain comparisons on the card
 ROI_F32_ATOL = 1e-5  # f32 sums in another order
 ROI_BF16_RTOL = 2.0 ** -7  # both sides round an f32 sum to bf16: <= 1 ulp
 ROI_BF16_ATOL = 1e-6
+# kernel 3 against its plain version: both take f32 statistics, each in
+# its own order (the kernel's Chan merges, aten's Welford), so f32 is held
+# to GN_F32_TOL relative and absolute, and bf16, which both round from
+# f32, to one bf16 ulp of each value plus that term
+GN_F32_TOL = 1e-5
+# the FCOS tower's level shapes of a request at each canvas (FPN strides
+# 8-128), and its width and groups
+GN_CANVASES = ((1344, 1344), (800, 1088))
+GN_CHANNELS, GN_GROUPS = 256, 32
 E2E_TOL = {"scores": (1e-6, 1e-5), "pred_boxes": (1e-6, 1e-4),
            "pred_masks": (0.0, 1e-4), "mask_scores": (1e-3, 1e-4)}
 # a keypoint model's (x, y, prob) of the same request replayed and eager:
@@ -523,6 +544,8 @@ def nms_inputs(rng: np.random.RandomState, n: int):
 
 
 KERNEL_FNS = ("nms_keep_sorted", "roi_align", "roi_align_backward")
+# the launch counts a served request moves (``_kernels.launch_counts``)
+KERNELS_SERVED = ("nms", "roi_align", "group_norm_relu")
 
 
 @contextlib.contextmanager
@@ -902,6 +925,166 @@ def check_roi_align(dev) -> float:
     return worst
 
 
+def tower_levels(H: int, W: int):
+    """The FPN level shapes (P3-P7) of an H x W canvas: stride 8, then
+    each level half the one before, rounded up."""
+    h, w = -(-H // 8), -(-W // 8)
+    out = []
+    for _ in range(5):
+        out.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    return out
+
+
+def gn_inputs(rng: np.random.RandomState, shapes, N: int, C: int, dtype,
+              dev):
+    """Channels-last maps of conv-output-like values (a per-channel offset
+    of up to 3 standard deviations) and f32 weight and bias."""
+    off = rng.randn(N, C, 1, 1) * 3.0
+    xs = [torch.from_numpy((rng.randn(N, C, h, w) + off).astype(np.float32))
+          .to(dev, dtype).contiguous(memory_format=torch.channels_last)
+          for h, w in shapes]
+    weight = torch.from_numpy(rng.randn(C).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.randn(C).astype(np.float32)).to(dev)
+    return xs, weight, bias
+
+
+def gn_case(xs, weight, bias, groups: int, what: str) -> float:
+    """Kernel 3 and its plain version on one call's levels: raises unless
+    every output is channels-last and within the tolerance (f32
+    ``GN_F32_TOL``; bf16 one ulp plus that). Returns the largest abs
+    error."""
+    from centermask2_tpu_torch.layers import GN_EPS
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.group_norm import group_norm_relu_plain
+
+    got = _kernels.group_norm_relu(xs, weight, bias, groups, GN_EPS)
+    want = [group_norm_relu_plain(x, weight, bias, groups, GN_EPS)
+            for x in xs]
+    torch.cuda.synchronize()
+    worst = 0.0
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        if not g.is_contiguous(memory_format=torch.channels_last) or \
+                g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"group_norm_relu {what} level {lvl}: "
+                                 f"{g.dtype} {tuple(g.stride())}")
+        d = (g.float() - w.float()).abs()
+        tol = GN_F32_TOL * (1 + w.float().abs())
+        if w.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * w.float().abs()
+        if not bool((d <= tol).all()):
+            i = int(torch.argmax(d - tol))
+            raise AssertionError(
+                f"group_norm_relu {what} level {lvl} {tuple(g.shape)}: "
+                f"kernel {g.flatten()[i].item()} plain "
+                f"{w.flatten()[i].item()} at flat {i}")
+        worst = max(worst, float(d.max()))
+    log(f"  group_norm_relu {what}: {xs[0].dtype} N={xs[0].shape[0]} "
+        f"C={xs[0].shape[1]} G={groups}, levels "
+        f"{[tuple(x.shape[2:]) for x in xs]}: within tolerance, worst "
+        f"{worst:.3g}")
+    return worst
+
+
+def gn_row(xs, weight, bias, groups: int, what: str) -> dict:
+    """Median times of kernel 3 over one call's levels, of its plain
+    version (the tower's chain before it: f32 group_norm, cast, relu, on
+    the NCHW maps), of aten's group_norm on those maps with weight and
+    bias in their dtype (aten's CUDA kernel takes no mixed types), and
+    the bound: the levels read once and written once at HBM speed (the
+    design's own floor, a second read for the apply pass, logged beside
+    it)."""
+    from centermask2_tpu_torch.layers import GN_EPS
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.ops.group_norm import group_norm_relu_plain
+
+    nchw = [x.contiguous() for x in xs]
+    ms = time_gpu_ms(lambda: _kernels.group_norm_relu(xs, weight, bias,
+                                                      groups, GN_EPS))
+    plain_ms = time_gpu_ms(lambda: [group_norm_relu_plain(
+        x, weight, bias, groups, GN_EPS) for x in nchw])
+    w_dt, b_dt = weight.to(xs[0].dtype), bias.to(xs[0].dtype)
+    library_ms = time_gpu_ms(lambda: [torch.nn.functional.group_norm(
+        x, groups, w_dt, b_dt, GN_EPS) for x in nchw])
+    nbytes = 2 * sum(x.numel() for x in xs) * xs[0].element_size()
+    bound = nbytes / card_peaks().hbm_bytes_s * 1e3
+    log(f"  group_norm_relu {what}: {xs[0].dtype} levels "
+        f"{[tuple(x.shape[2:]) for x in xs]}, C={xs[0].shape[1]}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, aten group_norm "
+        f"{library_ms:.4f} ms, bound {bound:.6f} ms (bytes: {nbytes} B, "
+        f"1 read + 1 write; the design's 2 reads + 1 write "
+        f"{bound * 3 / 2:.6f} ms)")
+    return {"name": "group_norm_relu", "route": "cuda", "source": GN_SOURCE,
+            "replaces": GN_REPLACES, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def check_group_norm(dev) -> dict:
+    """Kernel 3 against its plain version at the tower's level shapes of
+    a 1344x1344 and an 800x1088 request, bf16 and f32, C = 256, 32
+    groups; a batch of 2 at C = 128; groups of one value (C = 32 on 1x1
+    maps, at batch 1 and 2: the plain version's exact bias); one call
+    captured into a CUDA graph (one launch counted at the capture, none at
+    a replay, the replay on new inputs equal to the eager call); times
+    at both canvases in bf16. Returns the ``kernels`` row of the bf16
+    1344x1344 call, with the largest abs error of every case."""
+    from centermask2_tpu_torch.layers import GN_EPS
+    from centermask2_tpu_torch.ops import _kernels
+
+    rng = np.random.RandomState(3)
+    worst, row = 0.0, None
+    for H, W in GN_CANVASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = gn_inputs(rng, tower_levels(H, W), 1, GN_CHANNELS, dtype,
+                             dev)
+            worst = max(worst, gn_case(*args, GN_GROUPS, f"{H}x{W} request"))
+            if dtype == torch.bfloat16:
+                r = gn_row(*args, GN_GROUPS, f"{H}x{W} request")
+                row = row or r
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = max(worst, gn_case(
+            *gn_inputs(rng, tower_levels(800, 1088), 2, 128, dtype, dev),
+            GN_GROUPS, "batch of 2"))
+        for n in (1, 2):
+            xs, weight, bias = gn_inputs(rng, [(1, 1), (1, 1)], n, 32, dtype,
+                                         dev)
+            gn_case(xs, weight, bias, 32, "one value a group")
+            got = _kernels.group_norm_relu(xs, weight, bias, 32, GN_EPS)
+            want = torch.relu(bias).to(dtype)[None, :, None, None]
+            if not all(torch.equal(g, want.expand_as(g)) for g in got):
+                raise AssertionError("group_norm_relu: a group of one value "
+                                     "is not relu(bias) exactly")
+
+    xs, weight, bias = gn_inputs(rng, tower_levels(800, 1088), 1,
+                                 GN_CHANNELS, torch.bfloat16, dev)
+    eager = _kernels.group_norm_relu(xs, weight, bias, GN_GROUPS, GN_EPS)
+    graph = torch.cuda.CUDAGraph()
+    n0 = _kernels.group_norm_relu_launches
+    with torch.cuda.graph(graph):
+        out = _kernels.group_norm_relu(xs, weight, bias, GN_GROUPS, GN_EPS)
+    captured = _kernels.group_norm_relu_launches - n0
+    fresh, _, _ = gn_inputs(rng, tower_levels(800, 1088), 1, GN_CHANNELS,
+                            torch.bfloat16, dev)
+    for x, f in zip(xs, fresh):
+        x.copy_(f)
+    graph.replay()
+    want = _kernels.group_norm_relu(xs, weight, bias, GN_GROUPS, GN_EPS)
+    torch.cuda.synchronize()
+    replayed = _kernels.group_norm_relu_launches - n0 - captured - 1
+    if captured != 1 or replayed != 0 or \
+            not all(torch.equal(o, w) for o, w in zip(out, want)) or \
+            all(torch.equal(o, e) for o, e in zip(out, eager)):
+        raise AssertionError(f"group_norm_relu captured: {captured} launches "
+                             f"at the capture, {replayed} at the replay; the "
+                             f"replay on new inputs differs from the eager "
+                             f"call")
+    log("  group_norm_relu captured: one launch counted at the capture, none "
+        "at a replay; the replay on new inputs bit-equal to the eager call")
+    row["max_abs_err"] = worst
+    return row
+
+
 # ----------------------------------------------------------------- serve
 def make_image(seed: int, H: int, W: int, dev) -> torch.Tensor:
     """A normalized (1, H, W, 3) BGR - mean image from a seed."""
@@ -1014,19 +1197,21 @@ def serve(dev):
     torch.cuda.synchronize()
 
     ties = {"ties": [], "rows": 0}
+    gn = fused_tower_norms(model)
     _kernels.reset_launch_counts()
     for i, ((seed, H, W), img) in enumerate(zip(REQUESTS, images)):
-        before = (_kernels.nms_launches, _kernels.roi_align_launches)
+        before = _kernels.launch_counts()
         with topk_ties(ties):
             out = model.inference(img)
         n = check_outputs(out, 1, K, f"request {i} {H}x{W}")
-        after = (_kernels.nms_launches, _kernels.roi_align_launches)
-        if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        after = _kernels.launch_counts()
+        if [after[k] - before[k] for k in ("nms", "roi_align",
+                                           "group_norm_relu")] != [1, 1, gn]:
             raise AssertionError(f"request {i}: launches {before} -> {after}")
         log(f"  request {i} {H}x{W} bf16: {n} valid of {K}, launches "
-            f"nms +1 roi_align +1, top score {float(out.scores.max()):.4f}")
-    launches = {"nms": _kernels.nms_launches,
-                "roi_align": _kernels.roi_align_launches}
+            f"nms +1 roi_align +1 group_norm_relu +{gn}, top score "
+            f"{float(out.scores.max()):.4f}")
+    launches = _kernels.launch_counts()
     log_ties(ties, f"the {len(REQUESTS)} bf16 requests")
 
     torch.cuda.synchronize()
@@ -1447,13 +1632,24 @@ def check_ring_rows(prog, row0: int, calls: int, key: int, what: str,
         f"stamps non-decreasing{note}")
 
 
+def fused_tower_norms(model) -> int:
+    """Calls of kernel 3 in a CUDA request of ``model``: one a GroupNorm
+    layer of the FCOS towers (the head calls each tower once over all
+    levels, a deformable conv's output moved to channels-last first)."""
+    head = model.fcos_head
+    return sum(hasattr(t, f"norm{i}") for t in (
+        head.share_tower, head.cls_tower, head.bbox_tower)
+        for i in range(t.num_convs))
+
+
 def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
                    eager_ms=None, graphs=None, errs=None,
                    roi_per_request: int = 1) -> dict:
     """``model`` (``name``) at each canvas of ``canvases`` ((seed, H, W)),
     eagerly and through one ``CapturedInference``. Gates: one launch of
-    kernel 1 and ``roi_per_request`` of kernel 2 (3 with the adaptive
-    ROIAlign buckets) an eager request, ``WARMUP_CALLS`` + 1 times that
+    kernel 1, ``roi_per_request`` of kernel 2 (3 with the adaptive
+    ROIAlign buckets) and ``fused_tower_norms`` of kernel 3 (on the card;
+    none on the CPU) an eager request, ``WARMUP_CALLS`` + 1 times that
     at a capture (the side-stream warm-up and the capture) and none at a
     replay (launch counts), the same per replay (profiler); the replay
     against the eager request slot by slot (``compare_outputs``, a
@@ -1476,7 +1672,8 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     card = card_line()
     short = "bf16" if model.dtype == torch.bfloat16 else "f32"
     K = model.decode_kwargs["post_nms_topk"]
-    launches = {"nms": 0, "roi_align": 0}
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    gn_per_request = fused_tower_norms(model) if cuda else 0
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1498,8 +1695,10 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
             _kernels.reset_launch_counts()
             got = call(img)
             counts.append(_kernels.launch_counts())
-        want = [(n, n * roi_per_request) for n in (1, WARMUP_CALLS + 1, 0)]
-        if [(c["nms"], c["roi_align"]) for c in counts] != want:
+        want = [(n, n * roi_per_request, n * gn_per_request)
+                for n in (1, WARMUP_CALLS + 1, 0)]
+        if [(c["nms"], c["roi_align"], c["group_norm_relu"])
+                for c in counts] != want:
             raise AssertionError(f"{what}: launches {counts} for an eager "
                                  "request, a capture and a replay")
         for c in counts:
@@ -1519,7 +1718,9 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
                f"times by the capture" if roi_per_request == 1 else
                f"kernel 1 launched once and kernel 2 {roi_per_request} "
                f"times by the eager request, {w} and {w * roi_per_request} "
-               f"times by the capture")
+               f"times by the capture") + (
+            f", kernel 3 {gn_per_request} and {w * gn_per_request} times"
+            if gn_per_request else "")
         log(f"  {what}: {n} valid of {K}; {how} ({WARMUP_CALLS} warm-up "
             f"requests + the capture), not by a replay; the replay equals "
             f"the eager request slot by slot, every output bit-equal "
@@ -1577,7 +1778,7 @@ def graphs_phase(dev, models, eager_ms: dict, canvases=GRAPH_CANVASES,
     (``eager_ms`` by (H, W)); then where the f32 pool comes from
     (``f32_memory``). Returns the launches counted."""
     dev = torch.device(dev)
-    launches = {"nms": 0, "roi_align": 0}
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
     for dtype_name, model in models.items():
         window = WINDOW_S if timing and dtype_name == "bfloat16" else 0.0
         for k, v in graph_requests(dev, "graph", model, canvases, window,
@@ -1862,9 +2063,10 @@ def serving(dev, models, cfg, fixed: int = FIXED, short: int = SHORT,
             n = check_outputs(outs[0], 1, K, f"bf16 {where}")
             log(f"  bf16 {where}: {n} valid of {K}")
             captured.append((seen, f"bf16 {where}"))
-    launches = {"nms": _kernels.nms_launches,
-                "roi_align": _kernels.roi_align_launches}
-    if set(launches.values()) != {len(captured)}:
+    launches = {k: _kernels.launch_counts()[k] for k in KERNELS_SERVED}
+    gn = fused_tower_norms(model) if torch.device(dev).type == "cuda" else 0
+    if list(launches.values()) != [len(captured), len(captured),
+                                   gn * len(captured)]:
         raise AssertionError(f"{len(captured)} serving requests: launches "
                              f"{launches}")
     log(f"  {len(captured)} bf16 serving requests: launches {launches}")
@@ -1910,10 +2112,10 @@ def per_level_request(cfg, params_from, img, fixed: int, short: int, dev,
     _kernels.reset_launch_counts()
     seen = capture_kernel_inputs(lambda: outs.append(
         model.inference(x, None, hw, (fixed, fixed))))
-    launches = {"nms": _kernels.nms_launches,
-                "roi_align": _kernels.roi_align_launches}
+    launches = {k: _kernels.launch_counts()[k] for k in KERNELS_SERVED}
     n = check_outputs(outs[0], 1, K, "per-level request")
-    if set(launches.values()) != {1}:
+    gn = fused_tower_norms(model) if x.is_cuda else 0
+    if list(launches.values()) != [1, 1, gn]:
         raise AssertionError(f"per-level request: launches {launches}")
     sboxes, svalid, thr = seen["nms"]
     log(f"  per-level bf16 request: NMS over N = {int(svalid.shape[1])} "
@@ -2092,7 +2294,8 @@ def eval_runs(model, ann: str, modes, common: dict, n_images: int,
 
     cuda = next(model.parameters()).device.type == "cuda"
     card = card_line()
-    launches = {"nms": 0, "roi_align": 0}
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    gn = fused_tower_norms(model) if cuda else 0
     runs, progs = {}, {}
     for mode, kw, n_graphs, name in modes:
         if name is not None:  # its pool: the reserved memory it adds
@@ -2106,10 +2309,12 @@ def eval_runs(model, ann: str, modes, common: dict, n_images: int,
         res, avg_ms, ev = evaluate_dataset(model, ann=ann, **kw, **common)
         got = _kernels.launch_counts()
         want = (WARMUP_CALLS + 1) * n_graphs if n_graphs else n_images
-        if (got["nms"], got["roi_align"]) != (want, want):
+        if (got["nms"], got["roi_align"], got["group_norm_relu"]) != \
+                (want, want, want * gn):
             raise AssertionError(f"eval {mode}: launches {got}, {want} "
                                  f"expected for {n_images} images and "
-                                 f"{n_graphs} graphs")
+                                 f"{n_graphs} graphs (kernel 3 {gn} times "
+                                 f"that)")
         for k in launches:
             launches[k] += got[k]
         runs[mode] = (res, ev)
@@ -2281,7 +2486,7 @@ def export_phase(dev, s2d_model, nhwc_model, fixed: int = FIXED,
          (x, hw)),
         (f"f32-input {fixed}x{fixed} program", nhwc_model, torch.float32,
          None, (nhwc,)))
-    launches = {"nms": 0, "roi_align": 0}
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
     with tempfile.TemporaryDirectory() as root:
         for i, (what, model, dtype, cv, args) in enumerate(cases):
             K = model.decode_kwargs["post_nms_topk"]
@@ -2298,7 +2503,8 @@ def export_phase(dev, s2d_model, nhwc_model, fixed: int = FIXED,
             _kernels.reset_launch_counts()
             out = program(*args)
             got = {k: _kernels.launch_counts()[k] for k in launches}
-            if set(got.values()) != {1}:
+            gn = fused_tower_norms(model) if args[0].is_cuda else 0
+            if list(got.values()) != [1, 1, gn]:
                 raise AssertionError(f"{what}: launches {got} in one call")
             for k in launches:
                 launches[k] += got[k]
@@ -2919,7 +3125,8 @@ class TrainLoops:
     def __init__(self, batches, dev, gen):
         self.batches, self.dev, self.gen = batches, dev, gen
         self.totals = {k: 0 for k in ("nms", "roi_align",
-                                      "roi_align_backward")}
+                                      "roi_align_backward",
+                                      "group_norm_relu")}
         self.counts, self.events, self.metrics = [], [], []
 
     def after_step(self, done, metrics):
@@ -2935,10 +3142,12 @@ class TrainLoops:
         """One launch of each kernel in each of the first ``eager_steps``
         steps (eager, or the warm-up and the capture of a captured step),
         none in the later ones (replays)."""
-        prev = {k: 0 for k in self.totals}
+        prev = dict.fromkeys(self.counts[0] if self.counts else (), 0)
         for i, c in enumerate(self.counts):
             d = {k: c[k] - prev[k] for k in c}
-            if set(d.values()) != {int(i < eager_steps)}:
+            # autograd on: the towers keep the plain GroupNorm
+            if d.pop("group_norm_relu") or \
+                    set(d.values()) != {int(i < eager_steps)}:
                 raise AssertionError(f"{what} step {i}: launches {d}")
             prev = c
         if len(self.counts) != n_steps:
@@ -3322,7 +3531,8 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
     if cfgs is None:
         cfgs = {n: build() for n, (build, _) in BACKBONES.items()}
     dev = torch.device(dev)
-    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0}
+    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0,
+                "group_norm_relu": 0}
     errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
 
     def add(counts):
@@ -3507,7 +3717,8 @@ def adaptive_step(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
         seen = record_launches(lambda: step_grads(model, images, gt, draws),
                                KERNEL_FNS)
         counts = _kernels.launch_counts()
-    if counts != {"nms": 1, "roi_align": 3, "roi_align_backward": 3}:
+    if counts != {"nms": 1, "roi_align": 3, "roi_align_backward": 3,
+                  "group_norm_relu": 0}:
         raise AssertionError(f"adaptive f32 step: launches {counts}")
     what = "adaptive f32 step"
     fwd = [a[6] for a in seen["roi_align"]]
@@ -3573,7 +3784,8 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
         cfgs = {"keypoint": keypoint_cfg(), "adaptive": adaptive_cfg(),
                 "dcn": dcn_cfg()}
     dev = torch.device(dev)
-    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0}
+    launches = {"nms": 0, "roi_align": 0, "roi_align_backward": 0,
+                "group_norm_relu": 0}
     errs = {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
 
     def add(counts):
@@ -3851,7 +4063,8 @@ def rank_main(rank: int, port: int, out_dir: str) -> int:
                            generator=torch.Generator().manual_seed(9)).to(dev)
         t1 = time.perf_counter()
         runs = dp_f32_runs(cfg, dev, group, images, gt, draws)
-        if set(runs.pop("launches").values()) != {1}:
+        counts = runs.pop("launches")
+        if counts.pop("group_norm_relu") or set(counts.values()) != {1}:
             raise AssertionError(f"{norm} data-parallel step: launches")
         n = runs.pop("tensors")
         if main_rank:
@@ -4171,9 +4384,11 @@ def parallel_phase(dev, cfg=None, batch: int = TRAIN_BATCH,
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     n_want = WARMUP_CALLS + 1 if captured else len(dp_images)
-    if (counts["nms"], counts["roi_align"]) != (n_want, n_want):
+    gn = fused_tower_norms(model) if imgs.is_cuda else 0
+    if (counts["nms"], counts["roi_align"], counts["group_norm_relu"]) != \
+            (n_want, n_want, n_want * gn):
         raise AssertionError(f"make_dp_inference launches {counts}")
-    for k in ("nms", "roi_align"):
+    for k in ("nms", "roi_align", "group_norm_relu"):
         totals[k] += counts[k]
     same = compare_batches(got, want, K, "make_dp_inference vs "
                            "inference_batched")
@@ -4252,8 +4467,7 @@ def same_metrics(a: dict, b: dict) -> bool:
 
 @contextlib.contextmanager
 def launches_into(counts: dict):
-    """Adds the launches of kernels 1 and 2 inside the block to
-    ``counts``."""
+    """Adds the kernels' launches inside the block to ``counts``."""
     from centermask2_tpu_torch.ops import _kernels
 
     before = _kernels.launch_counts()
@@ -4261,7 +4475,7 @@ def launches_into(counts: dict):
         yield
     finally:
         now = _kernels.launch_counts()
-        for k in ("nms", "roi_align"):
+        for k in ("nms", "roi_align", "group_norm_relu"):
             counts[k] = counts.get(k, 0) + now[k] - before[k]
 
 
@@ -4388,8 +4602,10 @@ def deploy_bins(dev, model, root: str, ann: str, fixed: int, short: int,
 def deploy_layers(dev, model, cfg, x, root: str, cli: list,
                   launches: dict) -> None:
     """Step 4 of ``[deploy]``: ``check_layers``' dump of the model on the
-    card against the same model on the CPU, by name; then the CLI's dump
-    of the FCOS logits on the card against the CPU's, by the CLI."""
+    card against the same model on the CPU, by name (the outputs of the
+    tower norms that kernel 3 fuses with their ReLU on the card in the
+    CPU's dump alone, one a level); then the CLI's dump of the FCOS
+    logits on the card against the CPU's, by the CLI."""
     from centermask2_tpu_torch import build_centermask
     from centermask2_tpu_torch.tools import check_layers
 
@@ -4404,10 +4620,16 @@ def deploy_layers(dev, model, cfg, x, root: str, cli: list,
     host = check_layers.capture_layers(host_model, x.cpu())
     cpu_s = time.perf_counter() - t0
     del host_model
+    # kernel 3 does a tower layer's GroupNorm and ReLU in one call, so the
+    # card's dump has no output of those layers' norm modules: one a level
     rows, only_card, only_cpu = check_layers.compare_layers(card, host)
-    if only_card or only_cpu:
+    fused = [k for k in only_cpu if check_layers.TOWER_NORM.fullmatch(k)]
+    n_fused = fused_tower_norms(model) * len(model.fcos_in_features) \
+        if x.is_cuda else 0
+    if only_card or len(only_cpu) != len(fused) or len(fused) != n_fused:
         raise AssertionError(f"layer keys of one dump only: {only_card[:5]} "
-                             f"{only_cpu[:5]}")
+                             f"{only_cpu[:5]}; {len(fused)} tower norms of "
+                             f"the CPU's dump alone, {n_fused} expected")
     same_pick = all(np.array_equal(card[k], host[k])
                     for k in DEPLOY_SELECTION_KEYS)
     gated = [r for r in rows
@@ -4415,7 +4637,8 @@ def deploy_layers(dev, model, cfg, x, root: str, cli: list,
     roi = [r for r in rows if not r[2].startswith(DEPLOY_GATED_STAGES)]
     mb = sum(a.nbytes for a in card.values()) / 1e6
     log(f"  layers, card against CPU: {len(rows)} layers compared "
-        f"({mb:.0f} MB a dump), dumped in {card_s:.1f} s on the card and "
+        f"({mb:.0f} MB a dump; the {n_fused} tower norms of kernel 3 in "
+        f"the CPU's dump alone), dumped in {card_s:.1f} s on the card and "
         f"{cpu_s:.1f} s on the CPU; worst cosine up to the FCOS head "
         f"{min(r[0] for r in rows if r not in roi):.12f}; the decode's "
         f"selections equal {same_pick}, so the {len(roi)} ROI-stage and "
@@ -4576,7 +4799,8 @@ def deploy_phase(dev, cfg=None, serving=None, shapes=EVAL_SHAPES,
     max_size = cfg.INPUT.MAX_SIZE_TEST
     card = card_line()
     model = build_model(cfg, dev)
-    launches = {"nms": 0, "roi_align": 0}
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    gn = fused_tower_norms(model) if torch.device(dev).type == "cuda" else 0
     steps = {}
     with tempfile.TemporaryDirectory() as root:
         weights = os.path.join(root, "weights")
@@ -4595,10 +4819,10 @@ def deploy_phase(dev, cfg=None, serving=None, shapes=EVAL_SHAPES,
             rc, text = run_cli(parity_check.main, cli)
         cos = [float(v) for ln in text.splitlines()[1:8]
                for v in ln.split()[1::2]]
-        if rc or "PARITY OK" not in text or ladder != {"nms": 2,
-                                                       "roi_align": 2}:
+        if rc or "PARITY OK" not in text or ladder != {
+                "nms": 2, "roi_align": 2, "group_norm_relu": 2 * gn}:
             raise AssertionError(f"parity_check: exit {rc}, launches "
-                                 f"{ladder} (one a rung)")
+                                 f"{ladder} (one request a rung)")
         for k in launches:
             launches[k] += ladder[k]
         x = parity_check.model_input(model, cfg)
@@ -4975,7 +5199,7 @@ def main() -> int:
         f"devices {torch.cuda.device_count()}")
 
     secs = _kernels.build()
-    log(f"[build] the sources (kernels 1, 2 and 2b, the section stamp) "
+    log(f"[build] the sources (kernels 1, 2, 2b and 3, the section stamp) "
         f"built in {secs:.1f} s")
     for name, text in _kernels.build_logs().items():
         for line in text.splitlines():
@@ -4985,6 +5209,7 @@ def main() -> int:
     log("[kernels] each kernel against its plain version on the card")
     nms_err = check_nms(dev)
     roi_err = check_roi_align(dev)
+    gn = check_group_norm(dev)
     check_section_stamp(dev)
 
     # the V-39 phases run f32 without TF32, as their f32 gates (the s2d
@@ -5025,7 +5250,7 @@ def main() -> int:
         f"{TRAIN_BATCH} steps ({card})")
     bench_launches, _ = bench_phase(dev)
 
-    for row in (nms, roi, bwd):
+    for row in (nms, roi, bwd, gn):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             *v39_launches, bb_launches, kp_launches, dp_launches,
             dep_launches, bench_launches))
@@ -5034,7 +5259,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s total")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                for r in (nms, roi, bwd)],
+                                for r in (nms, roi, bwd, gn)],
                     "section_stamp_launches":
                         len(tracing.STAMPS) * STAMP_ROWS[0]}))
     log(json.dumps({"ok": True, "device": {

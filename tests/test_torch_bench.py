@@ -605,7 +605,8 @@ def test_bench_phase_rehearsal(outputs):
     2b (their ops' names) in their sections; no kernel launches (the
     plain versions run on the CPU)."""
     assert outputs["counts"] == {"nms": 0, "roi_align": 0,
-                                 "roi_align_backward": 0}
+                                 "roi_align_backward": 0,
+                                 "group_norm_relu": 0}
     for what in ("bench: None ms", "bench_train: None ms",
                  "bench_stages: the arms' medians (host clock)",
                  "bench_train_stages, the ROI branch",

@@ -122,8 +122,9 @@ def test_serving_phase_rehearsal(rehearsal, capsys):
         short=32, shapes=((0, 60, 32), (1, 32, 60), (2, 32, 32)),
         timing=False)
     assert s2d_model.s2d_input
-    assert launches == {"nms": 6, "roi_align": 6}
-    assert per_level == {"nms": 1, "roi_align": 1}
+    # kernel 3 none on the CPU
+    assert launches == {"nms": 6, "roi_align": 6, "group_norm_relu": 0}
+    assert per_level == {"nms": 1, "roi_align": 1, "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0}
     out = capsys.readouterr().out
     assert "torch.equal to the host f32 s2d input" in out and ": True" in out
@@ -156,7 +157,7 @@ def test_eval_phase_rehearsal(rehearsal, capsys):
         "cpu", model, fixed=256, min_size=128, max_size=250, shapes=shapes,
         sides=(20, 64, 110), timed_images=12, split_images=6,
         graphs=FakeGraphs(), pipeline_depth=0)
-    assert launches == {"nms": 33, "roi_align": 33}
+    assert launches == {"nms": 33, "roi_align": 33, "group_norm_relu": 0}
     out = capsys.readouterr().out
     assert "AP bbox 100.0000, segm 100.0000" in out
     assert ") of the default loop, the eager loop, the full pack and " \
@@ -188,7 +189,7 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
         "cpu", {"bfloat16": model, "float32": model}, {},
         canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs(),
         timing=False)
-    assert launches == {"nms": 16, "roi_align": 16}
+    assert launches == {"nms": 16, "roi_align": 16, "group_norm_relu": 0}
     out = capsys.readouterr().out
     for canvas in ("64x64", "96x64"):
         assert f"graph f32 {canvas} replay vs eager scores: max abs err " \
@@ -228,7 +229,7 @@ def test_export_phase_rehearsal(rehearsal, capsys, monkeypatch):
         multilevel_roi_align_plain, "roi_align_launches"))
     launches = chip_smoke.export_phase("cpu", s2d, nhwc, fixed=64, short=32,
                                        image=(200, 32, 60))
-    assert launches == {"nms": 2, "roi_align": 2}
+    assert launches == {"nms": 2, "roi_align": 2, "group_norm_relu": 0}
     out = capsys.readouterr().out
     assert "uint8 s2d serving program, tight 32x64 padded back to 64x64: " \
         "input (1, 9, 17, 48) uint8" in out
@@ -258,7 +259,8 @@ def test_train_phase_rehearsal(rehearsal, capsys):
         graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)))
     # the captured loop (3 warm-up steps, the capture, 2 replays): 4; the
     # eager loop of 3 steps: 3; the captured overfit of 6 steps: 4
-    assert launches == {"nms": 11, "roi_align": 11, "roi_align_backward": 11}
+    assert launches == {"nms": 11, "roi_align": 11, "roi_align_backward": 11,
+                        "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     assert row is None
     out = capsys.readouterr().out
@@ -390,8 +392,10 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
         train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
         timing=False)
     # R-50: 2 canvases x (1 + 3) + the f32 request's 4 + eval 3 + 3 +
-    # train 4 (captured) + 3 (eager); the other four backbones 4 each
-    assert launches == {"nms": 41, "roi_align": 41, "roi_align_backward": 7}
+    # train 4 (captured) + 3 (eager); the other four backbones 4 each;
+    # kernel 3 none on the CPU
+    assert launches == {"nms": 41, "roi_align": 41, "roi_align_backward": 7,
+                        "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
     for what in ("R-50 f32 64x64", "R-50 f32 96x64",
@@ -461,10 +465,11 @@ def test_keypoints_phase_rehearsal(rehearsal, capsys):
         train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
         timing=False)
     # keypoint: 2 canvases x (1 + 3) + eval 3 + 3 + train 4 + 3; adaptive:
-    # (1 + 3) x 3 of kernel 2 and the step's 1 / 3 / 3; DCN: 1 + 3
+    # (1 + 3) x 3 of kernel 2 and the step's 1 / 3 / 3; DCN: 1 + 3;
+    # kernel 3 none on the CPU
     assert launches == {"nms": 4 + 4 + 6 + 7 + 4 + 1 + 4,
                         "roi_align": 8 + 6 + 7 + 12 + 3 + 4,
-                        "roi_align_backward": 7 + 3}
+                        "roi_align_backward": 7 + 3, "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
     for what in ("keypoint V-39 f32 64x64", "keypoint V-39 f32 96x64",
@@ -517,7 +522,8 @@ def test_parallel_phase_rehearsal(rehearsal, capsys, monkeypatch):
         graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)))
     # five captured loops of 3 warm-up steps, the capture and a replay: 4
     # launches each; two eager requests
-    assert launches == {"nms": 22, "roi_align": 22, "roi_align_backward": 20}
+    assert launches == {"nms": 22, "roi_align": 22, "roi_align_backward": 20,
+                        "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
     assert "captured with the process group of one against the " \
@@ -567,7 +573,8 @@ def test_deploy_phase_rehearsal(rehearsal, capsys, monkeypatch):
     launches, errs = chip_smoke.deploy_phase(
         "cpu", *cfgs, shapes=((128, 250), (250, 128), (128, 128)),
         sides=(20, 64, 110), split_images=6)
-    assert launches == {"nms": 3 + 2 + 1 + 1 + 1 + 12, "roi_align": 20}
+    assert launches == {"nms": 3 + 2 + 1 + 1 + 1 + 12, "roi_align": 20,
+                        "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0}
     out = capsys.readouterr().out
     assert "bins in: preprocess_to_bin wrote 3 files of 786432 bytes" in out

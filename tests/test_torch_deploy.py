@@ -319,6 +319,31 @@ def test_compare_flags_drift_and_shape(tmp_path, capsys):
     assert "2 layers below cosine threshold" in out
 
 
+def test_compare_fails_on_a_tower_output_of_one_dump(tmp_path, capsys):
+    """A tower norm's output in one dump only (a dump on the card, where
+    kernel 3 writes none) is counted apart and passes; an FCOS tower's
+    output in one dump only fails the comparison."""
+    from centermask2_tpu_torch.tools import check_layers
+
+    one = np.ones((1, 2, 2, 4), np.float32)
+    full = {"x/__call__[0]": one, "fcos_head/cls_tower/__call__[0]": one,
+            "fcos_head/cls_tower/norm0/__call__[0]": one}
+    card = {k: v for k, v in full.items() if "/norm0/" not in k}
+    lost = {"x/__call__[0]": one}
+    for name, d in (("full", full), ("card", card), ("lost", lost)):
+        np.savez(tmp_path / f"{name}.npz", **d)
+    assert check_layers.main(["compare", str(tmp_path / "full.npz"),
+                              str(tmp_path / "card.npz")]) == 0
+    out = capsys.readouterr().out
+    assert "1 only in one dump (1 of them FCOS tower norms)" in out
+    assert check_layers.main(["compare", str(tmp_path / "full.npz"),
+                              str(tmp_path / "lost.npz")]) == 1
+    out = capsys.readouterr().out
+    assert "1 FCOS tower outputs in one dump only, e.g. " \
+        "fcos_head/cls_tower/__call__[0]" in out
+    assert "0 layers below cosine threshold" in out
+
+
 # ------------------------------------------------ convert, infer, visualize
 def test_convert_weights_and_infer_take_the_converted_file(
         tiny_coco, tmp_path, capsys):
