@@ -132,7 +132,7 @@ def evaluate_dataset(
     if tight_compute and not s2d:
         raise ValueError("tight_compute runs the s2d serving pack at its "
                          "tight canvas: it needs an s2d-input model "
-                         "(TPU.S2D_STEM_INPUT, a VoVNet backbone)")
+                         "(TPU.S2D_STEM_INPUT, a VoVNet or ResNet backbone)")
     tight = (s2d if tight is None else bool(tight) or tight_compute) and s2d
     canvas = None if tight_compute else (fixed_size, fixed_size)
 

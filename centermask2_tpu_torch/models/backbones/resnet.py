@@ -8,7 +8,14 @@ for the configs the reference can name.
 - BottleneckBlock: 1x1 -> 3x3 (``groups``) -> 1x1, the stride in the
   first 1x1 when ``stride_in_1x1`` (detectron2's default), else in the
   3x3; a projection shortcut where the channels or the stride change;
-- depths 50 / 101 / 152.
+- depths 50 / 101 / 152;
+- ``s2d_input``: the trunk takes the factor-4 s2d layout of the
+  normalized canvas (TPU.S2D_STEM_INPUT, the serving form the uint8 pack
+  reaches after ``CenterMask._normalize_u8_s2d``) and undoes it on the
+  device before the stem (``s2d_to_image``): a reshape, a permute and a
+  crop, so the stem sees the very canvas of the NHWC path. The JAX
+  package drops the s2d input for a ResNet (its ``meta.py:799``); the
+  stem's convolution is not folded onto the s2d grid as the VoVNet's is.
 
 Module names mirror the JAX tree (``stem_conv1``, ``res{s}_{b}`` with
 ``conv1..3`` and ``shortcut``, each a conv and its ``norm``), so that
@@ -36,6 +43,18 @@ RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
                        152: (3, 8, 36, 3)}
 RESNET_FEATURE_STRIDES = {"stem": 4, "res2": 4, "res3": 8, "res4": 16,
                           "res5": 32}
+
+
+def s2d_to_image(x: torch.Tensor) -> torch.Tensor:
+    """The NCHW canvas (B, C, H, W) of a factor-4 s2d input (B, 16C, H/4+1,
+    W/4+1), whose channel rho*4C + kap*C + c at (i, j) holds pixel
+    (4i + rho - 2, 4j + kap - 2) (``data/preprocess.py::
+    stem_space_to_depth``): pure data movement, exact in any dtype."""
+    B, C16, Ho, Wo = x.shape
+    C = C16 // 16
+    x = x.reshape(B, 4, 4, C, Ho, Wo).permute(0, 3, 4, 1, 5, 2)
+    x = x.reshape(B, C, 4 * Ho, 4 * Wo)
+    return x[:, :, 2:4 * Ho - 2, 2:4 * Wo - 2].contiguous()
 
 
 def resnet_feature_channels(res2_out: int = 256) -> Dict[str, int]:
@@ -72,15 +91,16 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """detectron2-semantics ResNet trunk on a 3-channel image; returns a
-    dict of the requested ``out_features`` ("stem", "res2".."res5")."""
+    """detectron2-semantics ResNet trunk on a 3-channel image, or on its
+    factor-4 s2d layout with ``s2d_input``; returns a dict of the
+    requested ``out_features`` ("stem", "res2".."res5")."""
 
     def __init__(self, depth: int = 50,
                  out_features: Sequence[str] = ("res3", "res4", "res5"),
                  norm: str = "FrozenBN", stem_out_channels: int = 64, res2_out_channels: int = 256,
                  num_groups: int = 1, width_per_group: int = 64,
                  stride_in_1x1: bool = True, res5_dilation: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 s2d_input: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if res5_dilation != 1:
             raise NotImplementedError(
@@ -91,6 +111,7 @@ class ResNet(nn.Module):
             raise ValueError(f"ResNet depth {depth}: one of "
                              f"{sorted(RESNET_STAGE_BLOCKS)}")
         self.out_features = tuple(out_features)
+        self.s2d_input = s2d_input
         self.stem_conv1 = ConvNormAct(3, stem_out_channels, (7, 7),
                                       (2, 2), (3, 3), norm=norm, dtype=dtype)
         self.stages = []
@@ -113,6 +134,8 @@ class ResNet(nn.Module):
             out_ch *= 2
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.s2d_input:
+            x = s2d_to_image(x)
         x = F.max_pool2d(self.stem_conv1(x), 3, 2, 1)
         tracing.mark("stem")
         outputs: Dict[str, torch.Tensor] = {}

@@ -20,7 +20,9 @@ inputs are the f32 canvas (or its s2d layout) and a ``GroundTruth``.
 
 The backbone is a VoVNet (standard or depthwise body), a ResNet or a
 MobileNetV2, resolved from the config as the JAX ``build_centermask``
-does; the s2d stem input applies to the VoVNet only. With
+does; the s2d stem input applies to the VoVNet and, unlike JAX, to the
+ResNet (its trunk undoes the layout before its stem), not to the
+MobileNet. With
 MODEL.KEYPOINT_ON the ROI heads carry the keypoint head: ``inference``
 adds ``pred_keypoints`` and ``loss`` adds ``loss_keypoint``. The
 deformable convs (MODEL.VOVNET.STAGE_WITH_DCN, MODEL.FCOS.USE_DEFORMABLE)
@@ -190,9 +192,10 @@ class CenterMask(nn.Module):
         if backbone_type not in BACKBONE_TYPES:
             raise ValueError(f"backbone type {backbone_type!r}: one of "
                              f"{BACKBONE_TYPES}")
-        if s2d_input and backbone_type != "vovnet":
+        if s2d_input and backbone_type == "mobilenet":
             raise ValueError("the s2d stem input (TPU.S2D_STEM_INPUT) "
-                             f"applies to the VoVNet only, not {backbone_type}")
+                             "applies to the VoVNet and the ResNet only, not "
+                             f"{backbone_type}")
         self.backbone_type = backbone_type
         self.fpn_in_features = tuple(fpn_in_features)
         self.fcos_in_features = tuple(fcos_in_features)
@@ -250,7 +253,8 @@ class CenterMask(nn.Module):
                 num_groups=resnet_num_groups,
                 width_per_group=resnet_width_per_group,
                 stride_in_1x1=resnet_stride_in_1x1,
-                res5_dilation=resnet_res5_dilation, dtype=dtype)
+                res5_dilation=resnet_res5_dilation, s2d_input=s2d_input,
+                dtype=dtype)
             chans = resnet_feature_channels(resnet_res2_out_channels)
             strides = RESNET_FEATURE_STRIDES
         else:
@@ -840,8 +844,9 @@ def build_centermask(cfg: CfgNode, device: DeviceLike = None,
         roi_iou_thresholds=tuple(cfg.MODEL.ROI_HEADS.IOU_THRESHOLDS),
         roi_iou_labels=tuple(cfg.MODEL.ROI_HEADS.IOU_LABELS),
         proposal_append_gt=cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT,
-        # the s2d stem is VoVNet's (JAX meta.py:799)
-        s2d_input=cfg.TPU.S2D_STEM_INPUT and kind == "vovnet",
+        # the s2d input is the VoVNet's and the ResNet's; JAX keeps it to
+        # the VoVNet (its meta.py:799)
+        s2d_input=cfg.TPU.S2D_STEM_INPUT and kind != "mobilenet",
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         remat_backbone=cfg.TPU.REMAT_BACKBONE,
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],

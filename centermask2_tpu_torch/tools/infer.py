@@ -194,7 +194,7 @@ def main(argv=None) -> None:
     model = build_centermask(cfg, device=args.device, seed=0)
     if args.tight_compute and not model.s2d_input:
         raise SystemExit("--tight-compute requires an s2d-input model "
-                         "(TPU.S2D_STEM_INPUT, a VoVNet backbone)")
+                         "(TPU.S2D_STEM_INPUT, a VoVNet or ResNet backbone)")
     if args.weights:
         load_weights(model, cfg, args.weights)
 

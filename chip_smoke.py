@@ -152,7 +152,12 @@ Phases, in order:
             request each, eager and captured, with 2 s windows. A
             ``[backbones]`` line per model and canvas: captured ms and
             quartiles, device ms, idle share, eager ms, graph pool,
-            parameters.
+            parameters. Then R-50 and R-101 with TPU.S2D_STEM_INPUT
+            served from the uint8 s2d pack, captured, at 800x1088 and at
+            the 800x1344 tight canvas (``resnet_u8_requests``): each
+            replay bit-equal to the eager request and to the f32 host
+            path of the same weights, replay ms beside the f32 path's,
+            the sections' split.
 12. keypoints: ``centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml`` from a
             Python copy (``keypoint_cfg``), full width, bf16: requests at
             800x1088 and 1344x1344 eagerly and through
@@ -1520,6 +1525,24 @@ def pool_bytes(r0: int) -> int:
     return torch.cuda.memory_reserved() - r0
 
 
+TIMED_REPLAYS = 30
+
+
+def replay_ms(run, reps: int = TIMED_REPLAYS) -> float:
+    """Device ms a call of ``run`` (a graph replay, input on the card),
+    ``reps`` back to back between two CUDA events, after one."""
+    run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def captured_window(prog, x_host, seconds: float) -> dict:
     """Per-request ms at B = 1 through a captured program, each request
     a new input copied from pinned host memory into the graph's input,
@@ -1553,20 +1576,10 @@ def captured_window(prog, x_host, seconds: float) -> dict:
         ms.append(a.elapsed_time(b))
         enqueue.append((w1 - w0) * 1e3)
     x_dev = x_host.to(prog.device)
-    prog(x_dev)
-    torch.cuda.synchronize()
-    reps = 30
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        prog(x_dev)
-    b.record()
-    b.synchronize()
     q1, q2, q3 = np.percentile(ms, [25, 50, 75])
     return {"n": len(ms), "q1": q1, "median": q2, "q3": q3,
             "enqueue": float(np.median(enqueue)),
-            "device": a.elapsed_time(b) / reps}
+            "device": replay_ms(lambda: prog(x_dev))}
 
 
 # the five sections summed over the CUDA events around a replay: at most
@@ -3511,10 +3524,95 @@ def backbone_train(dev, cfg, name: str, fixed: int = FIXED,
     return runs.totals, errs
 
 
+# [backbones]' uint8 requests of the ResNets, (seed, H, W) of the resized
+# image and the canvas it is packed over and run at: 800x1088 at its own
+# canvas, and a 4:3 COCO image resized to 800x1066 at its quantized tight
+# canvas (None: ``s2d_serving_canvas``'s, 800x1344)
+U8_REQUESTS = ((110, 800, 1088, (800, 1088)), (111, 800, 1066, None))
+def resnet_u8_requests(dev, name: str, cfg, requests=U8_REQUESTS,
+                       fixed: int = FIXED, short: int = SHORT, graphs=None,
+                       timing: bool = True) -> dict:
+    """``cfg``'s ResNet with TPU.S2D_STEM_INPUT served from the uint8 s2d
+    pack (``s2d_pack_u8`` over each request's canvas, run at that
+    canvas) through a ``CapturedInference``, against the f32 host
+    path of the same weights (the normalized canvas, TPU.S2D_STEM_INPUT
+    off) through another. Gates: the u8 replay bit-equal to its eager
+    request and to the f32 path's replay, output for output (the unpack
+    before the stem is pure data movement, so the stem's convolution
+    sees the same contiguous canvas). With ``timing``: device ms a replay
+    of both programs and the u8 program's sections (its ring's rows).
+    Returns the launches counted (eager requests and captures)."""
+    from centermask2_tpu_torch.data import (s2d_pack_u8, s2d_serving_canvas,
+                                            single_preprocessing)
+    from centermask2_tpu_torch.export import CapturedInference
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.utils.trace_sections import REPLAY_SECTIONS
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    u8_cfg, f32_cfg = cfg.clone(), cfg.clone()
+    u8_cfg.TPU.S2D_STEM_INPUT, f32_cfg.TPU.S2D_STEM_INPUT = True, False
+    model = build_model(u8_cfg, dev)
+    plain = build_model(f32_cfg, dev)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    if not model.s2d_input or plain.s2d_input:
+        raise AssertionError(f"{name}: TPU.S2D_STEM_INPUT did not reach "
+                             "the model")
+    short_name = "bf16" if model.dtype == torch.bfloat16 else "f32"
+    K = model.decode_kwargs["post_nms_topk"]
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    prog, prog32 = CapturedInference(model, graphs=graphs), \
+        CapturedInference(plain, graphs=graphs)
+    for key, (seed, H, W, pack_canvas) in enumerate(requests):
+        img = u8_image(seed, H, W)
+        ch, cw = pack_canvas or s2d_serving_canvas(H, W, fixed, short)
+        x = torch.from_numpy(s2d_pack_u8(img, (ch, cw))).to(dev)
+        hw = torch.tensor([[H, W]], dtype=torch.int32, device=dev)
+        canvas = torch.from_numpy(single_preprocessing(img, max(ch, cw))[
+            None, :ch, :cw].copy()).to(dev)
+        what = f"{name} {short_name} uint8 {H}x{W} at {ch}x{cw}"
+        _kernels.reset_launch_counts()
+        eager = model.inference(x, None, hw)
+        got = prog(x, None, hw)
+        got = type(got)(*(None if t is None else t.clone() for t in got))
+        want = prog32(canvas)
+        counts = _kernels.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        n = check_outputs(got, 1, K, what)
+        for other, against in ((eager, "its eager request"),
+                               (want, "the f32 host path's replay")):
+            differ = [f for f, a, b in zip(got._fields, got, other)
+                      if a is not None and not torch.equal(a, b)]
+            if differ:
+                compare_outputs(got, other, K, f"{what} vs {against}")
+                raise AssertionError(f"{what}: {differ} differ from "
+                                     f"{against}")
+        note = ""
+        if timing and cuda:
+            ms = replay_ms(lambda: prog(x, None, hw))
+            ms32 = replay_ms(lambda: prog32(canvas))
+            rows = prog.ring.read()
+            rows = rows[rows[:, 0] == key]
+            split = np.diff(rows[:, 1:], axis=1).mean(axis=0) * 1e-6
+            note = (f"; device {ms:.3f} ms a replay, the f32 host path's "
+                    f"{ms32:.3f} ms ({card_line()}); sections (mean of "
+                    f"{len(rows)} rows) " + ", ".join(
+                        f"{s} {v:.3f}" for s, v in zip(REPLAY_SECTIONS,
+                                                       split))
+                    + f" ms, stem + backbone "
+                    f"{split[:2].sum() / split.sum():.3f} of their sum")
+        log(f"  {what}: {n} valid of {K}; the replay bit-equal to its eager "
+            f"request and to the f32 host path's replay over the "
+            f"normalized {ch}x{cw} canvas, every output{note}")
+    del prog, prog32, model, plain
+    return launches
+
+
 def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
                     windows=(WINDOW_S, BACKBONE_WINDOW_S), train=None,
                     eval_kw=None, graphs=None, train_graphs=None,
-                    timing: bool = True):
+                    timing: bool = True, u8_kw=None):
     """The ``[backbones]`` phase: the other backbone families at full
     width, bf16, random weights from seed 0. R-50: requests at each canvas
     eagerly and captured (``graph_requests``, with the kernels held
@@ -3522,6 +3620,8 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
     request at the first canvas with TF32 off, the eval entry point
     (``backbone_eval``), training (``backbone_train``). R-101, MobileNetV2
     and the two depthwise VoVNets: one request each at the first canvas.
+    R-50 and R-101 from the uint8 s2d pack (``resnet_u8_requests``, with
+    ``u8_kw``).
     The bf16 work runs at PyTorch's default settings, as the entry points
     do (cuDNN's TF32 for MobileNetV2's f32 body). ``cfgs``: name -> config (``BACKBONES``' by default); ``train``,
     ``eval_kw``: keyword arguments of ``backbone_train`` and
@@ -3571,6 +3671,10 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
         add(graph_requests(dev, name, model, canvases[:1],
                            windows[1] if timing else 0.0, graphs=graphs))
         del model
+        drop()
+    for name in ("R-50", "R-101"):
+        add(resnet_u8_requests(dev, name, cfgs[name], graphs=graphs,
+                               timing=timing, **(u8_kw or {})))
         drop()
     return launches, errs
 

@@ -319,14 +319,16 @@ def _configs(yaml_name, opts):
     return out
 
 
-def whole_model_parity(yaml_name, opts, seed=0):
-    """One 128x160 image through JAX's and the port's
-    ``build_centermask`` of ``yaml_name`` with ``opts``, from the same
-    numpy parameters (the classification prior bias zeroed, so that the
-    decode keeps real candidates); asserts the slots agree."""
+def whole_model_parity(yaml_name, opts, seed=0, img=None):
+    """One 128x160 image (or the normalized canvas ``img``, (1, H, W, 3)
+    f32) through JAX's and the port's ``build_centermask`` of
+    ``yaml_name`` with ``opts``, from the same numpy parameters (the
+    classification prior bias zeroed, so that the decode keeps real
+    candidates); asserts the slots agree."""
     jcfg, tcfg = _configs(yaml_name, opts)
     rng = np.random.RandomState(seed)
-    img = (rng.rand(1, 128, 160, 3) * 255.0 - PIXEL_MEAN).astype(np.float32)
+    drawn = (rng.rand(1, 128, 160, 3) * 255.0 - PIXEL_MEAN).astype(np.float32)
+    img = drawn if img is None else img
     jm = jax_build(jcfg)
     params = numpy_params(jm, rng, jnp.asarray(img))
     params["fcos_head"]["cls_logits"]["bias"][:] = 0.0
@@ -393,18 +395,44 @@ def test_every_yaml_builds(yaml_path):
         hasattr(model.roi_heads, "keypoint_head")
 
 
-def test_s2d_stem_input_is_the_vovnets_only():
-    """TPU.S2D_STEM_INPUT turns off for the ResNet and the MobileNet, as
-    in JAX (``meta.py:799``); the constructor refuses it for them."""
-    _, cfg = _configs("centermask_R_50_FPN_ms_3x.yaml",
-                      SMALL_OPTS + RESNET_OPTS + ["TPU.S2D_STEM_INPUT",
-                                                  "True"])
-    assert not build_centermask(cfg, device="cpu").s2d_input
+@pytest.mark.parametrize("kind", ["resnet", "mobilenet"])
+def test_s2d_stem_input_by_backbone(kind):
+    """TPU.S2D_STEM_INPUT reaches the ResNet (JAX drops it there,
+    ``meta.py:799``): its trunk undoes the s2d layout before the stem,
+    so the model on the host's f32 s2d input equals the model on the
+    NHWC canvas. The MobileNet keeps the refusal: the config drops the
+    option and the constructor refuses it."""
+    from centermask2_tpu_torch.data.preprocess import stem_space_to_depth
     from centermask2_tpu_torch.models.meta import CenterMask
 
-    with pytest.raises(ValueError, match="VoVNet only"):
-        CenterMask(backbone_type="mobilenet", s2d_input=True,
-                   fpn_in_features=("res3", "res4", "res5"))
+    if kind == "mobilenet":
+        _, cfg = _configs("centermask_mobilenetV2_FPN_ms_4x.yaml",
+                          SMALL_OPTS + ["TPU.S2D_STEM_INPUT", "True"])
+        assert not build_centermask(cfg, device="cpu").s2d_input
+        with pytest.raises(ValueError, match="VoVNet and the ResNet only"):
+            CenterMask(backbone_type="mobilenet", s2d_input=True,
+                       fpn_in_features=("res3", "res4", "res5"))
+        return
+    models = []
+    for s2d in ("False", "True"):
+        _, cfg = _configs("centermask_R_50_FPN_ms_3x.yaml",
+                          SMALL_OPTS + RESNET_OPTS
+                          + ["TPU.S2D_STEM_INPUT", s2d])
+        models.append(build_centermask(cfg, device="cpu", seed=3))
+    plain, s2d_model = models
+    assert s2d_model.s2d_input and s2d_model.backbone.s2d_input
+    assert not plain.s2d_input
+    with torch.no_grad():
+        plain.fcos_head.cls_logits.bias.zero_()
+    s2d_model.load_state_dict(plain.state_dict(), strict=True)
+    x = (np.random.RandomState(4).rand(1, 64, 96, 3) * 255.0
+         - PIXEL_MEAN).astype(np.float32)
+    want = plain.inference(torch.from_numpy(x))
+    got = s2d_model.inference(torch.from_numpy(stem_space_to_depth(x)))
+    assert want.valid.any()
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
 
 
 @pytest.mark.parametrize("yaml_name,backbone", [

@@ -376,7 +376,9 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
     at the first canvas, the eval entry point over 3 images (one graph),
     its training captured and eager with the frozen stages unchanged and
     the f32 step against the plain versions; one request each of R-101,
-    MobileNetV2 and the two depthwise VoVNets."""
+    MobileNetV2 and the two depthwise VoVNets; R-50 and R-101 from the
+    uint8 pack, at its own canvas and at its tight canvas, bit-equal to
+    the f32 host path."""
     from test_torch_captured import FakeGraphs, _state
 
     cfgs = {n: _tiny_backbone_cfg(build())
@@ -390,11 +392,14 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
                      sides=(20, 64, 110), pipeline_depth=0),
         graphs=FakeGraphs(),
         train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
-        timing=False)
+        timing=False,
+        u8_kw=dict(requests=((110, 64, 64, (64, 64)), (111, 60, 90, None)),
+                   fixed=96, short=64))
     # R-50: 2 canvases x (1 + 3) + the f32 request's 4 + eval 3 + 3 +
     # train 4 (captured) + 3 (eager); the other four backbones 4 each;
-    # kernel 3 none on the CPU
-    assert launches == {"nms": 41, "roi_align": 41, "roi_align_backward": 7,
+    # R-50 and R-101 from the uint8 pack: 2 requests x (1 eager + 3 + 3,
+    # the two programs' captures) each; kernel 3 none on the CPU
+    assert launches == {"nms": 69, "roi_align": 69, "roi_align_backward": 7,
                         "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
@@ -414,6 +419,11 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
         assert f"R-50 {what} train step, " in out
     assert "stem_conv1 and res2 parameters bit-equal after the steps" in out
     assert "f32 train step, kernels vs plain: " in out
+    for name in ("R-50", "R-101"):
+        for what in ("uint8 64x64 at 64x64", "uint8 60x90 at 64x96"):
+            assert f"  {name} f32 {what}: 10 valid of 10; the replay " \
+                "bit-equal to its eager request and to the f32 host path's " \
+                "replay over the normalized" in out
 
 
 def test_keypoint_config_is_its_yaml():
