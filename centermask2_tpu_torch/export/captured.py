@@ -36,6 +36,18 @@ the replay's stream order, so requests in flight do not mix their rows.
 Each capture's seconds, warm-ups included, add to ``capture_s`` and to
 the process's ``tracing`` counter of the same name.
 
+The warm-ups and the captures run on the object's prepared weights
+(``layers/prepared.py::PreparedWeights``, ``weights``): every conv and
+linear reads its weight cast once to the compute dtype, each FrozenBN
+``ConvNormAct`` its conv with the norm folded in, the VoVNet its s2d
+stem's kernels folded; the graphs replay none of that work. Every call
+first compares the weights' data pointers and version counters with the
+set last prepared and, where one moved (a ``load_state_dict``, a train
+step), recomputes the prepared tensors in place, which every graph
+already captured reads. ``prepared()`` runs ``model.inference`` eagerly
+on the same tensors, as the graphs do. Eager calls of the model outside
+this object keep the plain chain.
+
 ``CudaGraphs`` is the CUDA side of capturing (side stream, pool,
 ``torch.cuda.graph``); ``train/trainer.py`` captures the train step
 through it too. A caller may pass another object with the same two
@@ -49,6 +61,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..layers.prepared import PreparedWeights
 from ..utils import tracing
 
 WARMUP_CALLS = 2  # side-stream calls of the forward before each capture
@@ -111,9 +124,16 @@ class CapturedInference:
         self.programs: Dict[tuple, tuple] = {}
         self.capture_s = 0.0  # warm-up and capture, all graphs
         self.ring: Optional[tracing.Ring] = None  # made at the first capture
+        self.weights = PreparedWeights(model)
 
     def __len__(self) -> int:
         return len(self.programs)
+
+    def prepared(self):
+        """A context in which ``model.inference`` runs eagerly on the
+        weights the graphs read (refreshed first), as a replay computes."""
+        self.weights.refresh()
+        return self.weights.serving()
 
     def __call__(self, images: torch.Tensor,
                  image_sizes: Optional[torch.Tensor] = None,
@@ -124,6 +144,7 @@ class CapturedInference:
                                                       for v in canvas_hw)
         key = (tuple(None if a is None else (tuple(a.shape), a.dtype)
                      for a in args), canvas)
+        self.weights.refresh()
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = self._capture(args, canvas)
@@ -141,11 +162,13 @@ class CapturedInference:
                        .copy_(a) for a in args)
 
         def run():
-            return self.model.inference(*static, canvas)
+            with self.weights.serving():
+                return self.model.inference(*static, canvas)
 
         def staged():  # armed while captured, and where a replay reruns it
-            with tracing.armed(self.ring, key):
-                return run()
+            with tracing.armed(self.ring, key), \
+                    self.weights.serving(capturing=True):
+                return self.model.inference(*static, canvas)
 
         self.graphs.warm_up(run, WARMUP_CALLS)
         if self.ring is None:

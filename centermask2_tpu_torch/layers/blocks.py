@@ -11,6 +11,9 @@ torch layout), ``bias`` stays ``bias``, the GroupNorm ``gn/scale`` is
 ``gn.weight``, a BatchNorm's ``bn/scale`` is ``bn.weight`` (its
 ``batch_stats`` ``bn/mean`` and ``bn/var`` are the buffers ``bn.mean`` and
 ``bn.var``), and FrozenBN keeps ``frozen_scale``/``frozen_bias``.
+Inside the captured serving program (``layers/prepared.py``) the convs,
+linears and FrozenBN ``ConvNormAct``s read weights prepared once per set
+of weights instead: cast, and with FrozenBN folded into the conv.
 Each parameterised block has ``reset_parameters(generator)`` drawing the
 JAX initializer's distribution from an explicit ``torch.Generator``.
 """
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.group_norm import group_norm_f32
+from . import prepared
 
 GN_EPS = 1e-5
 BN_EPS = 1e-5
@@ -97,17 +101,33 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.constant_(self.bias, self.bias_value)
 
+    prepared_counts = (1, 0)  # (convs, folded norms) of its entry
+
+    def prepared_sources(self):
+        return [self.weight] + ([] if self.bias is None else [self.bias])
+
+    def prepare_weights(self, nhwc: bool):
+        """(weight, bias) in the compute dtype, the weight channels-last
+        for a channels-last input (``layers/prepared.py``)."""
+        fmt = torch.channels_last if nhwc else torch.contiguous_format
+        w = self.weight.detach().to(self.dtype, memory_format=fmt, copy=True)
+        b = None if self.bias is None else \
+            self.bias.detach().to(self.dtype, copy=True)
+        return w, b
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        b = None if self.bias is None else self.bias.to(dt)
         # a channels-last input (the FCOS towers on the card) takes its
-        # weight channels-last in the same cast, as cuDNN's NHWC kernels
-        # read it
-        nhwc = x.dim() == 4 and not x.is_contiguous() and \
-            x.is_contiguous(memory_format=torch.channels_last)
-        w = self.weight.to(dt, memory_format=torch.channels_last if nhwc
-                           else torch.preserve_format)
-        return F.conv2d(x.to(dt), w, b, self.stride, self.padding, 1,
+        # weight channels-last, as cuDNN's NHWC kernels read it
+        nhwc = prepared.is_channels_last(x)
+        store = prepared.active()
+        if store is not None:
+            w, b = store.get(self, nhwc)
+        else:
+            dt = self.dtype
+            b = None if self.bias is None else self.bias.to(dt)
+            w = self.weight.to(dt, memory_format=torch.channels_last if nhwc
+                               else torch.preserve_format)
+        return F.conv2d(x.to(w.dtype), w, b, self.stride, self.padding, 1,
                         self.groups)
 
 
@@ -137,11 +157,26 @@ class ConvTranspose2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    prepared_counts = (1, 0)
+
+    def prepared_sources(self):
+        return [self.weight] + ([] if self.bias is None else [self.bias])
+
+    def prepare_weights(self, fmt=None):
+        return (self.weight.detach().to(self.dtype, copy=True),
+                None if self.bias is None else
+                self.bias.detach().to(self.dtype, copy=True))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), b,
-                                  self.stride, self.padding)
+        store = prepared.active()
+        if store is not None:
+            w, b = store.get(self)
+        else:
+            dt = self.dtype
+            b = None if self.bias is None else self.bias.to(dt)
+            w = self.weight.to(dt)
+        return F.conv_transpose2d(x.to(w.dtype), w, b, self.stride,
+                                  self.padding)
 
 
 class Linear(nn.Module):
@@ -161,9 +196,23 @@ class Linear(nn.Module):
         init_weight_(self.weight, self.init, generator)
         nn.init.zeros_(self.bias)
 
+    prepared_counts = (1, 0)
+
+    def prepared_sources(self):
+        return [self.weight, self.bias]
+
+    def prepare_weights(self, fmt=None):
+        return (self.weight.detach().to(self.dtype, copy=True),
+                self.bias.detach().to(self.dtype, copy=True))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        store = prepared.active()
+        if store is not None:
+            w, b = store.get(self)
+        else:
+            dt = self.dtype
+            w, b = self.weight.to(dt), self.bias.to(dt)
+        return F.linear(x.to(w.dtype), w, b)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -374,10 +423,37 @@ class ConvNormAct(nn.Module):
         self.norm = get_norm(norm, features)
         self.use_act = use_act
 
+    prepared_counts = (1, 1)  # the conv, with its FrozenBN folded
+
+    def prepared_sources(self):
+        if not isinstance(self.norm, FrozenBatchNorm):
+            return []
+        return self.conv.prepared_sources() + [self.norm.frozen_scale,
+                                               self.norm.frozen_bias]
+
+    def prepare_weights(self, nhwc: bool):
+        """The FrozenBN folded into the conv (``layers/prepared.py``):
+        (weight, bias) computed in float32, rounded once to the compute
+        dtype."""
+        c, n = self.conv, self.norm
+        w, b = prepared.fold_frozen_bn(c.weight.detach(), None if c.bias is
+                                       None else c.bias.detach(),
+                                       n.frozen_scale, n.frozen_bias)
+        fmt = torch.channels_last if nhwc else torch.contiguous_format
+        return (w.to(c.dtype, memory_format=fmt, copy=True),
+                b.to(c.dtype, copy=True))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        if self.norm is not None:
-            x = self.norm(x)
+        store = prepared.active()
+        if store is not None and isinstance(self.norm, FrozenBatchNorm):
+            c = self.conv
+            w, b = store.get(self, prepared.is_channels_last(x))
+            x = F.conv2d(x.to(w.dtype), w, b, c.stride, c.padding, 1,
+                         c.groups)
+        else:
+            x = self.conv(x)
+            if self.norm is not None:
+                x = self.norm(x)
         if self.use_act:
             x = F.relu(x)
         return x

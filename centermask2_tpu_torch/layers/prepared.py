@@ -1,0 +1,158 @@
+"""Weights prepared once per set of weights, for the captured serving
+program.
+
+On the plain path every conv and linear casts its float32 parameters to
+the compute dtype on each call, and a ``ConvNormAct`` with FrozenBN runs
+its conv, then ``x * scale + bias`` as two more passes over the map. A
+CUDA graph replays all of that on every request. ``PreparedWeights``
+holds, for each module of a model that reads it, the tensors that work
+is for, computed from the parameters once:
+
+- ``Conv2d``, ``ConvTranspose2d``, ``Linear``: weight and bias in the
+  compute dtype, the conv weight in the memory format its input comes in
+  (channels-last in the FCOS towers on the card);
+- ``ConvNormAct`` with ``FrozenBatchNorm``: the norm folded into the conv,
+  ``w * s`` and ``b_conv * s + b`` (or ``b``), computed in float32 and
+  rounded to the compute dtype once; the forward is then the conv with
+  that bias and the ReLU;
+- the VoVNet's s2d stem: its zero-embedded kernels with the three
+  FrozenBN scales folded in and the biases as the convs' biases.
+
+Only ``export/captured.py::CapturedInference`` reads the store: its
+warm-ups and captures run inside ``serving()``, and a module reads its
+prepared tensors only there and with autograd off. Every other path
+(eager inference, training, ``torch.export``, the FLOP count, the layer
+dump) runs the plain chain. The store is made at the first call inside
+``serving()``, each entry at its module's first call, never while
+``capturing``: a module that meets a new input format during a capture
+raises, so nothing is allocated inside a graph. ``refresh()`` (once per
+request, before the replay) compares each source tensor's data pointer
+and version counter with the last set prepared and, where one moved,
+recomputes every entry in place: the graphs read the same storage and
+see the new weights with no recapture.
+
+Counters (``utils/tracing.py::count``): ``weights_prepared`` +1 for each
+set of weights prepared (the first, and each refresh after a change);
+``prepared_convs`` +1 for each conv or linear served from the store (the
+s2d stem counts its three convs); ``folded_norms`` +1 for each FrozenBN
+folded.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..utils import tracing
+
+_active = None  # (thread, store, capturing) inside ``serving()``
+
+
+def active() -> Optional["PreparedWeights"]:
+    """The store the modules read on this thread: inside ``serving()``
+    with autograd off, else None (the plain chain)."""
+    a = _active
+    if a is None or a[0] != threading.get_ident() or \
+            torch.is_grad_enabled():
+        return None
+    return a[1]
+
+
+def is_channels_last(x: torch.Tensor) -> bool:
+    """Whether a 4-d map is laid out channels-last (and not also NCHW)."""
+    return x.dim() == 4 and not x.is_contiguous() and \
+        x.is_contiguous(memory_format=torch.channels_last)
+
+
+class PreparedWeights:
+    """The prepared tensors of ``model``'s modules (the module
+    docstring). A module that takes part has ``prepare_weights(fmt)``,
+    which returns its tensors (fresh, detached) for the input format
+    ``fmt``, ``prepared_sources()``, the parameters and buffers they are
+    computed from, and ``prepared_counts``, the (convs, folded norms) it
+    stands for."""
+
+    def __init__(self, model: nn.Module):
+        seen, sources = set(), []
+        for m in model.modules():
+            if hasattr(m, "prepare_weights"):
+                for t in m.prepared_sources():
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        sources.append(t)
+        self.sources: List[torch.Tensor] = sources  # built once
+        self.entries: Dict[Tuple[nn.Module, object],
+                           Tuple[torch.Tensor, ...]] = {}
+        self.key = None
+        self.convs = 0
+        self.folded = 0
+
+    def _key(self):
+        return [(t.data_ptr(), t._version) for t in self.sources]
+
+    def refresh(self) -> bool:
+        """Recompute every entry in place if a source changed since the
+        last set prepared (the first call starts a set). Outside any
+        capture. Returns whether a set was started."""
+        key = self._key()
+        if key == self.key:
+            return False
+        with torch.no_grad():
+            for (m, fmt), dst in self.entries.items():
+                for d, s in zip(dst, m.prepare_weights(fmt)):
+                    if d is not None:
+                        d.copy_(s)
+        self.key = key
+        tracing.count("weights_prepared", 1)
+        return True
+
+    def get(self, module: nn.Module, fmt=None) -> Tuple[torch.Tensor, ...]:
+        """``module``'s tensors for input format ``fmt``, made at its
+        first call outside a capture."""
+        e = self.entries.get((module, fmt))
+        if e is not None:
+            return e
+        a = _active
+        if a is not None and a[1] is self and a[2]:
+            raise RuntimeError(
+                f"{type(module).__name__} met input format {fmt!r} during a "
+                "capture with no prepared weights for it: the warm-up "
+                "before the capture runs every format first")
+        with torch.no_grad():
+            e = tuple(module.prepare_weights(fmt))
+        self.entries[(module, fmt)] = e
+        convs, folded = module.prepared_counts
+        self.convs += convs
+        self.folded += folded
+        tracing.count("prepared_convs", convs)
+        if folded:
+            tracing.count("folded_norms", folded)
+        return e
+
+    @contextmanager
+    def serving(self, capturing: bool = False):
+        """The modules read this store on this thread inside the block;
+        ``capturing``: no entry may be made there."""
+        global _active
+        prev = _active
+        _active = (threading.get_ident(), self, capturing)
+        try:
+            yield self
+        finally:
+            _active = prev
+
+
+def fold_frozen_bn(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                   scale: torch.Tensor, shift: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``conv(x, w) * s + b`` as ``conv(x, w * s) + (b_conv * s + b)``, in
+    float32: (weight, bias) for a conv of weight (O, ...) and output
+    channels scaled by ``scale``, shifted by ``shift``."""
+    s = scale.float()
+    w = weight.float() * s.reshape((-1,) + (1,) * (weight.dim() - 1))
+    b = shift.float() if bias is None else bias.float() * s + shift.float()
+    return w, b

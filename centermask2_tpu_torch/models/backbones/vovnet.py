@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers import (Conv2d, ConvNormAct, DeformConvBlock, eSEModule,
-                       get_norm, max_pool2d_ceil)
+                       get_norm, max_pool2d_ceil, prepared)
 from ...utils import tracing
 
 # Stage specs (reference vovnet.py:30-108, JAX vovnet.py:35-72).
@@ -137,7 +137,9 @@ def _embed_stem1_nat(w1: torch.Tensor) -> torch.Tensor:
 class S2DStemKernels(NamedTuple):
     """What ``s2d_stem_forward`` convolves with, in the compute dtype: the
     zero-embedded kernels and the FrozenBN affines tiled over phases,
-    each affine a (scale, bias) pair shaped (1, C, 1, 1)."""
+    each affine a (scale, bias) pair shaped (1, C, 1, 1); folded (the
+    scales in the kernels), each a (None, bias (C,)) pair, the bias the
+    conv's."""
 
     k1: torch.Tensor  # (4*C1, 48, 2, 2): all four phases of stem_1
     k2: Tuple[torch.Tensor, torch.Tensor]  # (2*C2, 4*C1, 2, 3) per P
@@ -151,9 +153,14 @@ StemParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
-                     dtype: torch.dtype) -> S2DStemKernels:
+                     dtype: torch.dtype, fold: bool = False
+                     ) -> S2DStemKernels:
     """Build the s2d stem's kernels from the logical stem parameters,
     each a (weight (O, I, 3, 3), frozen_scale, frozen_bias) triple.
+    ``fold`` (the captured serving program's prepared weights,
+    ``layers/prepared.py``): each FrozenBN scale multiplies its kernel in
+    float32 before the embedding and the one rounding to ``dtype``, and
+    the biases become the convs' (stem_3's once, on its first half).
 
     XLA folds these into constants of the JAX program; in eager PyTorch
     they cost some eighty small launches, so ``VoVNet`` builds them once
@@ -163,6 +170,9 @@ def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
     kernels with each phase's 2x2 kernel at column offset Q; stem_3's
     phase-(0,0) kernel split channel-wise over the two stem_2 pairs."""
     (w1, s1, b1), (w2, s2, b2), (w3, s3, b3) = k1, k2, k3
+    if fold:
+        w1, w2, w3 = (w.float() * s.float()[:, None, None, None]
+                      for w, s in ((w1, s1), (w2, s2), (w3, s3)))
     C2 = w2.shape[0]
     pairs = []
     for P in (0, 1):
@@ -173,6 +183,8 @@ def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
     k3e = _embed_s2d_kernel(w3, 0, 0)
 
     def affine(s, b, rep):
+        if fold:
+            return None, b.float().repeat(rep).to(dtype)
         return (s.repeat(rep).to(dtype)[None, :, None, None],
                 b.repeat(rep).to(dtype)[None, :, None, None])
 
@@ -195,24 +207,29 @@ def s2d_stem_forward(xd2: torch.Tensor,
     plain stem up to rounding order. Returns the stem output
     (B, C3, Hd-1, Wd-1)."""
     kn = kernels
+    folded = kn.a1[0] is None
+
+    def conv(x, k, a=None):  # a folded stem's conv adds its bias
+        return F.conv2d(x, k, a[1] if folded and a is not None else None)
 
     def affine_relu(y, a):
-        return F.relu(y * a[0] + a[1])
+        return F.relu(y) if folded else F.relu(y * a[0] + a[1])
 
     # stem_1: the 4 output phases of y1, packed (p, q) row-major
-    y1d = affine_relu(F.conv2d(xd2.to(kn.k1.dtype), kn.k1), kn.a1)
+    y1d = affine_relu(conv(xd2.to(kn.k1.dtype), kn.k1, kn.a1), kn.a1)
     # stem_2: conv3x3/s1/p1 in s2d space, 2 paired phase convs over the
     # 1-padded y1d (zero rows/cols of y1d are exactly y1's conv padding)
     y1p = F.pad(y1d, (1, 1, 1, 1))
     h = y1d.shape[2]
-    y2_pairs = [affine_relu(F.conv2d(y1p[:, :, P:P + h + 1], kn.k2[P]),
+    y2_pairs = [affine_relu(conv(y1p[:, :, P:P + h + 1], kn.k2[P], kn.a2),
                             kn.a2) for P in (0, 1)]
     # stem_3: conv3x3/s2/p1, whose stride-2 output lands on the s2d grid:
     # one phase-(0,0) conv as two channel-half convs over the top/left
     # zero-padded stem_2 pairs, summed
     y3 = None
     for P in (0, 1):
-        part = F.conv2d(F.pad(y2_pairs[P], (1, 0, 1, 0)), kn.k3[P])
+        part = conv(F.pad(y2_pairs[P], (1, 0, 1, 0)), kn.k3[P],
+                    kn.a3 if P == 0 else None)
         y3 = part if y3 is None else y3 + part
     return affine_relu(y3, kn.a3)
 
@@ -309,7 +326,9 @@ class VoVNet(nn.Module):
     plain stem does. Under ``no_grad`` (inference) they are built at the
     first forward and again whenever a stem parameter was replaced, moved
     or written in place (its tensor, storage or version counter
-    changed)."""
+    changed). In the captured serving program they come folded from the
+    prepared weights (``layers/prepared.py``), made once per set of
+    weights outside the graph."""
 
     def __init__(self, body: str = "V-39-eSE",
                  out_features: Sequence[str] = ("stage2", "stage3", "stage4",
@@ -365,6 +384,19 @@ class VoVNet(nn.Module):
                 for t in (m.conv.weight, m.norm.frozen_scale,
                           m.norm.frozen_bias)]
 
+    prepared_counts = (3, 3)  # the s2d stem's convs and FrozenBNs
+
+    def prepared_sources(self) -> List[torch.Tensor]:
+        return self._stem_sources() if self.s2d_input else []
+
+    def prepare_weights(self, fmt=None) -> Tuple[torch.Tensor, ...]:
+        """The s2d stem's kernels with the FrozenBNs folded, flat: k1, the
+        two k2 pairs, the two k3 halves, the three biases."""
+        srcs = [t.detach() for t in self._stem_sources()]
+        kn = s2d_stem_kernels(*(tuple(srcs[i:i + 3]) for i in (0, 3, 6)),
+                              self.dtype, fold=True)
+        return (kn.k1, *kn.k2, *kn.k3, kn.a1[1], kn.a2[1], kn.a3[1])
+
     def s2d_kernels(self) -> S2DStemKernels:
         """The s2d stem's kernels for the current stem parameters, built
         once per set of weights, detached: the inference path's (see the
@@ -384,11 +416,17 @@ class VoVNet(nn.Module):
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if not self.s2d_input:
             return self.stem_3(self.stem_2(self.stem_1(x)))
+        store = prepared.active()
+        if store is not None:  # the captured serving program's, folded
+            k1, k2a, k2b, k3a, k3b, b1, b2, b3 = store.get(self)
+            return s2d_stem_forward(x, S2DStemKernels(
+                k1, (k2a, k2b), (k3a, k3b), (None, b1), (None, b2),
+                (None, b3)))
         # a differentiable function of the stem; under torch.export (fake
         # parameters, no data pointer for the cache's key) a traced one;
-        # in a CUDA graph one built by the graph, so that every replay
-        # reads the stem's weights as they are then (training updates
-        # them in place)
+        # in any other CUDA graph one built by the graph, so that every
+        # replay reads the stem's weights as they are then (training
+        # updates them in place)
         if torch.is_grad_enabled() or torch.compiler.is_exporting() or (
                 x.is_cuda and torch.cuda.is_current_stream_capturing()):
             srcs = self._stem_sources()

@@ -18,8 +18,10 @@ same draw in the same order as the eager step's, so the random stream
 is the same. Every field of the ``GroundTruth`` that is not None (a
 keypoint model's ``keypoints`` among them) is a graph input. ``train_loop`` passes the same device buffers every step,
 so nothing is copied twice. The model's parameters, the momentum
-buffers and the schedule's count are updated in place by every replay;
-``restore_train_state`` writes a checkpoint into those same tensors, so
+buffers and the schedule's count are updated in place by every replay,
+which then bumps the parameters' version counters as an eager step's
+in-place update does (a ``CapturedInference`` of the model refreshes its
+prepared weights by them); ``restore_train_state`` writes a checkpoint into those same tensors, so
 the graph stays valid across a restore. ``train_loop`` feeds the step
 host batches (``data/coco.py::train_batches``) through pinned and
 device buffers that it reuses, and is the loop both
@@ -50,6 +52,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from ..export.captured import CudaGraphs, supports_graphs
 from ..layers import BatchNorm
@@ -158,6 +161,11 @@ class CapturedTrainStep:
         self.body = _step_body(model, optimizer, scheduler, group)
         self.graphs = graphs if graphs is not None else CudaGraphs(
             next(model.parameters()).device)
+        # what a replay writes in place, out of autograd's sight: their
+        # version counters are bumped after it, as an eager step's are
+        # (``CapturedInference`` refreshes its prepared weights by them)
+        self.written = [p for g in optimizer.param_groups
+                        for p in g["params"]]
         self.calls = 0
         self.graph = None
         self.static = None
@@ -189,6 +197,8 @@ class CapturedTrainStep:
             elif self.static[-1] is not None:
                 _draws(self.model, gt, generator, out=self.static[-1])
         self.graph.replay()
+        for p in self.written:
+            increment_version(p)
         return {k: v.clone() for k, v in self.out.items()}
 
 

@@ -41,10 +41,11 @@ Off, a span is a flag check and a shared null context. The program's
 spans: ``pack`` (the native pass of ``data/preprocess.py::s2d_pack_u8``)
 and ``to_host`` (``evaluation/loop.py::_to_host``).
 
-**Set-up counters** (seconds, always on, one add an event):
+**Set-up counters** (always on, one add an event): seconds of
 ``capture_s`` (every ``CapturedInference`` capture, warm-ups included:
 the timing of the object's own ``capture_s``) and ``model_build_s``
-(``models/meta.py::build_centermask``).
+(``models/meta.py::build_centermask``); counts of ``weights_prepared``,
+``prepared_convs`` and ``folded_norms`` (``layers/prepared.py``).
 """
 
 from __future__ import annotations
@@ -219,12 +220,12 @@ _counters: Dict[str, float] = {}
 
 
 def count(name: str, seconds: float) -> None:
-    """Add ``seconds`` to the set-up counter ``name``."""
+    """Add ``seconds`` (or a count) to the set-up counter ``name``."""
     _counters[name] = _counters.get(name, 0.0) + float(seconds)
 
 
 def counter(name: str) -> Optional[float]:
-    """A counter's seconds; None when nothing was counted."""
+    """A counter's value; None when nothing was counted."""
     return _counters.get(name)
 
 

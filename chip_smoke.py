@@ -157,7 +157,21 @@ Phases, in order:
             the 800x1344 tight canvas (``resnet_u8_requests``): each
             replay bit-equal to the eager request and to the f32 host
             path of the same weights, replay ms beside the f32 path's,
-            the sections' split.
+            the sections' split. Then ``[prepared]``
+            (``prepared_phase``): the served V-39 and R-101 (uint8 packs
+            at 800x1088 and 1344x1344, FrozenBN statistics drawn), bf16
+            and f32 with TF32 off, through ``CapturedInference``, whose
+            graphs read weights prepared once (cast, FrozenBN folded),
+            against eager serving on the plain chain: each replay
+            bit-equal to the eager request on the prepared weights; the
+            trunk, FPN and FCOS outputs above cosine 1 - 1e-5 of the
+            plain chain's in f32, and in bf16 no further from the f32
+            request than twice the plain chain; weights loaded after a
+            capture reaching the next replay in place; the counters
+            ``weights_prepared``, ``prepared_convs``, ``folded_norms``.
+            Wherever a phase holds a replay equal to "the eager
+            request", that request runs on the program's prepared
+            weights (``prepared_eager``).
 12. keypoints: ``centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml`` from a
             Python copy (``keypoint_cfg``), full width, bf16: requests at
             800x1088 and 1344x1344 eagerly and through
@@ -1109,6 +1123,35 @@ def build_model(cfg, dev):
     return model
 
 
+def prepared_eager(model):
+    """``model.inference`` run eagerly on weights prepared as a
+    ``CapturedInference`` of it prepares them (``layers/prepared.py``:
+    cast once, FrozenBN folded): the eager request a replay is held to,
+    bit for bit. The plain chain (``model.inference`` itself) rounds
+    otherwise; ``prepared_phase`` holds the two against each other."""
+    from centermask2_tpu_torch.layers.prepared import PreparedWeights
+
+    store = PreparedWeights(model)
+
+    def inference(*args):
+        store.refresh()
+        with store.serving():
+            return model.inference(*args)
+    return inference
+
+
+@contextlib.contextmanager
+def prepared_weights(model):
+    """Eager calls of ``model`` inside read prepared weights, as
+    ``prepared_eager``'s do."""
+    from centermask2_tpu_torch.layers.prepared import PreparedWeights
+
+    store = PreparedWeights(model)
+    store.refresh()
+    with store.serving():
+        yield
+
+
 # the section stamp's check: two programs' keys, replayed in this order
 # into a ring of STAMP_CHECK_ROWS rows (it wraps twice)
 STAMP_CHECK_KEYS = (0, 1, 1, 0, 1, 0, 0, 1, 0, 1, 1, 0, 0)
@@ -1665,7 +1708,8 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     none on the CPU) an eager request, ``WARMUP_CALLS`` + 1 times that
     at a capture (the side-stream warm-up and the capture) and none at a
     replay (launch counts), the same per replay (profiler); the replay
-    against the eager request slot by slot (``compare_outputs``, a
+    against the eager request on the program's prepared weights
+    (``prepared_eager``) slot by slot (``compare_outputs``, a
     keypoint model's ``pred_keypoints`` included; bit-equality and the
     worst differences printed). With ``errs``, each kernel launch held
     against its plain version on the eager request's inputs, the worst
@@ -1693,6 +1737,7 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         r0 = torch.cuda.memory_reserved()
     prog = CapturedInference(model, graphs=graphs)
     call = Counted(prog)
+    eager_request = prepared_eager(model)  # the weights the replays read
     rows = []
     for key, (seed, H, W) in enumerate(canvases):
         img = make_image(seed, H, W, dev)
@@ -1702,7 +1747,7 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         outs = []
         _kernels.reset_launch_counts()
         seen, peak = eager_peak(lambda: record_launches(
-            lambda: outs.append(model.inference(img))))
+            lambda: outs.append(eager_request(img))))
         counts = [_kernels.launch_counts()]
         for _ in range(2):  # the warm-up and capture, then a replay
             _kernels.reset_launch_counts()
@@ -2408,8 +2453,8 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
     by_default = supports_graphs(torch.device(dev))
     modes = (("tight pack, pad-back", {}, n_tight if by_default else 0,
               None),
-             ("tight pack, pad-back, eager", {"fn": model.inference}, 0,
-              None),
+             ("tight pack, pad-back, eager", {"fn": prepared_eager(model)},
+              0, None),
              ("full pack", {"tight": False}, 1 if by_default else 0, None),
              ("tight compute", {"tight_compute": True}, n_tight,
               "tight compute"),
@@ -2450,7 +2495,8 @@ def eval_phase(dev, model, fixed: int = FIXED, min_size: int = SHORT,
         prog = progs["pad-back"]
         built = len(prog)
         got = {}
-        for mode, fn in (("captured", prog), ("eager", model.inference)):
+        for mode, fn in (("captured", prog),
+                         ("eager", prepared_eager(model))):
             res, avg_ms, ev = evaluate_dataset(model, ann=ann, fn=fn,
                                                **common)
             got[mode] = ev.predictions
@@ -3427,7 +3473,7 @@ def backbone_eval(dev, model, fixed: int = FIXED, min_size: int = SHORT,
     import tempfile
 
     modes = (("captured", {}, 1, "padded"),
-             ("eager", {"fn": model.inference}, 0, None))
+             ("eager", {"fn": prepared_eager(model)}, 0, None))
     with tempfile.TemporaryDirectory() as root:
         ann = (dataset or make_coco_dataset)(root, shapes, sides=sides)
         common = dict(image_root=root, fixed_size=fixed, min_size=min_size,
@@ -3537,7 +3583,8 @@ def resnet_u8_requests(dev, name: str, cfg, requests=U8_REQUESTS,
     canvas) through a ``CapturedInference``, against the f32 host
     path of the same weights (the normalized canvas, TPU.S2D_STEM_INPUT
     off) through another. Gates: the u8 replay bit-equal to its eager
-    request and to the f32 path's replay, output for output (the unpack
+    request on the program's prepared weights and to the f32 path's
+    replay, output for output (the unpack
     before the stem is pure data movement, so the stem's convolution
     sees the same contiguous canvas). With ``timing``: device ms a replay
     of both programs and the u8 program's sections (its ring's rows).
@@ -3572,7 +3619,8 @@ def resnet_u8_requests(dev, name: str, cfg, requests=U8_REQUESTS,
             None, :ch, :cw].copy()).to(dev)
         what = f"{name} {short_name} uint8 {H}x{W} at {ch}x{cw}"
         _kernels.reset_launch_counts()
-        eager = model.inference(x, None, hw)
+        with prog.prepared():
+            eager = model.inference(x, None, hw)
         got = prog(x, None, hw)
         got = type(got)(*(None if t is None else t.clone() for t in got))
         want = prog32(canvas)
@@ -3606,6 +3654,257 @@ def resnet_u8_requests(dev, name: str, cfg, requests=U8_REQUESTS,
             f"request and to the f32 host path's replay over the "
             f"normalized {ch}x{cw} canvas, every output{note}")
     del prog, prog32, model, plain
+    return launches
+
+
+# [prepared]: (seed, H, W) of the requests, each a uint8 image packed at
+# its own canvas; the bf16 prepared path may stray from the f32 plain
+# reference at most this factor times as far (1 - cosine) as the bf16
+# plain chain does, plus PREPARED_BF16_FLOOR (it rounds less: once a
+# folded weight, once a conv output, where the plain chain rounds the
+# weight, the conv output, the product and the sum)
+PREPARED_REQUESTS = ((120, 800, 1088), (121, 1344, 1344))
+PREPARED_BF16_FACTOR = 2.0
+PREPARED_BF16_FLOOR = 1e-6
+
+
+def prepared_cfgs() -> dict:
+    """The served models of ``[prepared]``: the V-39 serving yaml and
+    R-101 from the uint8 s2d pack (the benchmark's two configurations)."""
+    r101 = resnet_cfg(101)
+    r101.TPU.S2D_STEM_INPUT = True
+    return {"V-39": serving_cfg(), "R-101": r101}
+
+
+def folded_norms(model) -> int:
+    """The FrozenBNs a captured program of ``model`` folds: every
+    ``ConvNormAct`` with one (the s2d stem's three among them)."""
+    from centermask2_tpu_torch.layers import ConvNormAct, FrozenBatchNorm
+
+    return sum(isinstance(m, ConvNormAct) and
+               isinstance(m.norm, FrozenBatchNorm) for m in model.modules())
+
+
+def frozen_statistics(model, seed: int) -> None:
+    """Every FrozenBN of ``model`` given a scale drawn from U(0.5, 1) and
+    a shift from N(0, 0.1) (a trained network's folded statistics; the
+    initial ones, 1 and 0, would fold exactly)."""
+    from centermask2_tpu_torch.layers import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.frozen_scale.shape[0]
+                m.frozen_scale.copy_(torch.rand(n, generator=g) * 0.5 + 0.5)
+                m.frozen_bias.copy_(torch.randn(n, generator=g) * 0.1)
+
+
+def layer_outputs(model, run) -> dict:
+    """``run()``'s trunk features, FPN levels and FCOS head outputs (the
+    gated stages of ``[deploy]``) and its outputs, by name, as float32 on
+    the device."""
+    got = {}
+
+    def flat(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                flat(f"{prefix}/{k}", x)
+        elif isinstance(v, (tuple, list)):
+            for i, x in enumerate(v):
+                flat(f"{prefix}[{i}]", x)
+        elif isinstance(v, torch.Tensor):
+            got[prefix] = v.detach().float()
+
+    handles = [getattr(model, n).register_forward_hook(
+        lambda m, a, out, n=n: flat(n, out))
+        for n in ("backbone", "fpn", "fcos_head")]
+    try:
+        out = run()
+    finally:
+        for h in handles:
+            h.remove()
+    for f in out._fields:
+        flat(f"out/{f}", getattr(out, f))
+    return got
+
+
+def layer_cos(a: dict, b: dict, keys) -> dict:
+    """1 - cosine of each key's two tensors (f64 on the device)."""
+    out = {}
+    for k in keys:
+        x, y = a[k].double().reshape(-1), b[k].double().reshape(-1)
+        nx, ny = float(x.norm()), float(y.norm())
+        out[k] = 0.0 if nx == 0 and ny == 0 else (
+            1.0 if nx == 0 or ny == 0 else 1.0 - float(x @ y) / (nx * ny))
+    return out
+
+
+def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
+                      graphs=None) -> dict:
+    """``cfg``'s served model (bf16, and f32 with TF32 off) through a
+    ``CapturedInference`` (prepared weights: cast once, FrozenBN folded,
+    ``layers/prepared.py``) against eager serving on the plain chain,
+    each request a uint8 image packed at its own canvas, the FrozenBN
+    statistics drawn (``frozen_statistics``). Gates: each
+    replay bit-equal to the eager request on the prepared weights
+    (``CapturedInference.prepared``); in f32 every trunk, FPN and FCOS
+    output of the prepared request above cosine ``LAYER_COS`` against
+    the plain one (``[deploy]``'s criterion), the outputs too where both
+    decodes selected alike; in bf16 each of them no further (1 - cosine)
+    from the f32 plain request than ``PREPARED_BF16_FACTOR`` times the
+    bf16 plain request's distance plus ``PREPARED_BF16_FLOOR``; the
+    program's counters: one set of weights prepared, ``folded_norms``
+    FrozenBNs folded. On the V-39's first bf16 request, weights loaded
+    after the capture reach the next replay (``check_prepared_refresh``:
+    refreshed in place, no recapture, two more sets prepared with the
+    old weights loaded back). Returns the launches counted."""
+    from centermask2_tpu_torch.data import s2d_pack_u8
+    from centermask2_tpu_torch.export import CapturedInference
+    from centermask2_tpu_torch.ops import _kernels
+    from centermask2_tpu_torch.utils import tracing
+
+    dev = torch.device(dev)
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model = build_model(cfg, dev)
+    frozen_statistics(model, 0)
+    with exact_f32():
+        model32 = build_model(cfg32, dev)
+    model32.load_state_dict(model.state_dict(), strict=True)
+    want_folded = folded_norms(model)
+    K = model.decode_kwargs["post_nms_topk"]
+    sel = ("out/locations", "out/pred_classes", "out/valid")
+    for short, m in (("f32", model32), ("bf16", model)):
+        prepared0 = tracing.counter("weights_prepared") or 0.0
+        with exact_f32() if short == "f32" else contextlib.nullcontext():
+            prog = CapturedInference(m, graphs=graphs)
+            for i, (seed, H, W) in enumerate(requests):
+                what = f"{name} {short} uint8 {H}x{W}"
+                x = torch.from_numpy(s2d_pack_u8(u8_image(seed, H, W),
+                                                 (H, W))).to(dev)
+                hw = torch.tensor([[H, W]], dtype=torch.int32, device=dev)
+                _kernels.reset_launch_counts()
+                got = prog(x, None, hw)
+                got = type(got)(*(None if t is None else t.clone()
+                                  for t in got))
+                with prog.prepared():
+                    prep = layer_outputs(m, lambda: m.inference(x, None, hw))
+                plain = layer_outputs(m, lambda: m.inference(x, None, hw))
+                counts = _kernels.launch_counts()
+                for k in launches:
+                    launches[k] += counts[k]
+                n = check_outputs(got, 1, K, what)
+                differ = [f for f in got._fields if getattr(got, f) is not None
+                          and not torch.equal(getattr(got, f).float(),
+                                              prep[f"out/{f}"])]
+                if differ:
+                    raise AssertionError(f"{what}: the replay's {differ} "
+                                         "differ from the eager request on "
+                                         "the prepared weights")
+                alike = all(torch.equal(prep[k], plain[k]) for k in sel)
+                keys = [k for k in prep if not k.startswith("out/")
+                        or (alike and k not in sel)]
+                if short == "f32":
+                    d = layer_cos(prep, plain, keys)
+                    bad = {k: v for k, v in d.items() if not 1 - v > LAYER_COS}
+                    note = (f"worst 1 - cosine against the plain chain "
+                            f"{max(d.values()):.3e} ({max(d, key=d.get)})")
+                else:
+                    with exact_f32():
+                        ref = layer_outputs(model32, lambda: model32.inference(
+                            x, None, hw))
+                    keys = [k for k in keys if not k.startswith("out/") or
+                            all(torch.equal(ref[j], plain[j]) for j in sel)]
+                    dp, dq = layer_cos(prep, ref, keys), layer_cos(plain, ref,
+                                                                   keys)
+                    bad = {k: (dp[k], dq[k]) for k in keys if not dp[k] <=
+                           PREPARED_BF16_FACTOR * dq[k] + PREPARED_BF16_FLOOR}
+                    worst = max(keys, key=lambda k: dp[k] - dq[k])
+                    note = (f"1 - cosine against the f32 plain request: "
+                            f"prepared worst {max(dp.values()):.3e}, plain "
+                            f"worst {max(dq.values()):.3e}, prepared less "
+                            f"than plain on {sum(dp[k] <= dq[k] for k in keys)}"
+                            f" of {len(keys)}; the largest excess "
+                            f"{dp[worst] - dq[worst]:.3e} ({worst})")
+                    del ref
+                if bad:
+                    raise AssertionError(f"{what}: prepared against plain "
+                                         f"outside the gate: "
+                                         f"{list(bad.items())[:4]}")
+                log(f"  {what}: {n} valid of {K}; the replay bit-equal to "
+                    f"the eager request on the prepared weights; decodes "
+                    f"{'alike' if alike else 'apart'} (prepared and plain);"
+                    f" {len(keys)} tensors gated, {note}")
+                if i == 0 and short == "bf16" and name == "V-39":
+                    check_prepared_refresh(prog, m, x, hw, what)
+                del prep, plain
+            sets = (tracing.counter("weights_prepared") or 0.0) - prepared0
+            # the refresh check's two loads prepare two sets more
+            want_sets = 3 if short == "bf16" and name == "V-39" else 1
+            if sets != want_sets or prog.weights.folded != want_folded:
+                raise AssertionError(
+                    f"{name} {short}: {sets} sets of weights prepared "
+                    f"({want_sets} expected), {prog.weights.folded} FrozenBNs"
+                    f" folded ({want_folded} expected)")
+            log(f"  {name} {short}: {len(prog)} graphs; weights_prepared "
+                f"+{sets:g}, prepared_convs {prog.weights.convs}, "
+                f"folded_norms {prog.weights.folded}; process counters "
+                + ", ".join(f"{c} {tracing.counter(c) or 0:g}" for c in (
+                    "weights_prepared", "prepared_convs", "folded_norms"))
+                + f" ({card_line()})")
+            del prog
+    del model, model32
+    return launches
+
+
+def check_prepared_refresh(prog, model, x, hw, what: str) -> None:
+    """Weights loaded into ``model`` after ``prog`` captured its graph
+    (``load_state_dict``, every FrozenBN scale times 1.25) reach the
+    next replay: no new graph, the prepared tensors written in place,
+    the replay bit-equal to the eager request on the new weights and
+    apart from the old replay; the old weights loaded back."""
+    old = {k: v.clone() for k, v in model.state_dict().items()}
+    first = prog(x, None, hw).scores.clone()
+    n_graphs = len(prog)
+    ptrs = [t.data_ptr() for e in prog.weights.entries.values() for t in e
+            if t is not None]
+    model.load_state_dict({k: v * 1.25 if k.endswith("frozen_scale") else v
+                           for k, v in old.items()})
+    got = prog(x, None, hw)
+    got = type(got)(*(None if t is None else t.clone() for t in got))
+    with prog.prepared():
+        want = model.inference(x, None, hw)
+    same = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+    now = [t.data_ptr() for e in prog.weights.entries.values() for t in e
+           if t is not None]
+    if len(prog) != n_graphs or now != ptrs or not same or \
+            torch.equal(got.scores, first):
+        raise AssertionError(f"{what}: weights loaded after the capture: "
+                             f"{len(prog) - n_graphs} new graphs, prepared "
+                             f"tensors in place {now == ptrs}, the replay "
+                             f"equal to the eager request {same}")
+    model.load_state_dict(old)
+    prog(x, None, hw)
+    log(f"  {what}: weights loaded after the capture reach the next replay "
+        f"(no recapture, the prepared tensors rewritten in place, the "
+        f"replay bit-equal to the eager request on the new weights)")
+
+
+def prepared_phase(dev, cfgs=None, requests=PREPARED_REQUESTS,
+                   graphs=None) -> dict:
+    """The ``[prepared]`` phase: ``prepared_requests`` for each served
+    model of ``cfgs`` (``prepared_cfgs()``). Returns the launches
+    counted."""
+    launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
+    for name, cfg in (cfgs or prepared_cfgs()).items():
+        counts = prepared_requests(dev, name, cfg, requests, graphs)
+        for k in launches:
+            launches[k] += counts[k]
+        if torch.device(dev).type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
     return launches
 
 
@@ -4481,7 +4780,8 @@ def parallel_phase(dev, cfg=None, batch: int = TRAIN_BATCH,
     model = build_model(serve_cfg, dev)
     K = cfg.MODEL.FCOS.POST_NMS_TOPK_TEST
     imgs = torch.cat([make_image(s, H, W, dev) for s, H, W in dp_images])
-    want = model.inference_batched(imgs)
+    with prepared_weights(model):  # the weights the replays read
+        want = model.inference_batched(imgs)
     _kernels.reset_launch_counts()
     captured = supports_graphs(dev)
     got = make_dp_inference(model, group)(imgs)
@@ -5326,6 +5626,11 @@ def main() -> int:
         "V-19-slim-dw-eSE from their yamls at full width, bf16, random "
         f"weights (seed 0) ({card})")
     bb_launches, bb_errs = backbones_phase(dev)
+    log(f"[prepared] the served V-39 and R-101 through CapturedInference "
+        f"(weights prepared once: cast, FrozenBN folded) against eager "
+        f"serving on the plain chain, uint8 packs at 800x1088 and "
+        f"1344x1344, bf16 and f32 (TF32 off) ({card})")
+    prep_launches = prepared_phase(dev)
     log(f"[keypoints] {KEYPOINT_YAML} at full width, bf16, random weights "
         "(seed 0): served, evaluated by OKS and trained; the flagship with "
         f"the adaptive ROIAlign buckets and with deformable convs ({card})")
@@ -5356,7 +5661,8 @@ def main() -> int:
 
     for row in (nms, roi, bwd, gn):
         row["launches"] = sum(c.get(row["name"], 0) for c in (
-            *v39_launches, bb_launches, kp_launches, dp_launches,
+            *v39_launches, bb_launches, prep_launches, kp_launches,
+            dp_launches,
             dep_launches, bench_launches))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -426,6 +426,40 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
                 "replay over the normalized" in out
 
 
+def test_prepared_phase_rehearsal(rehearsal, capsys):
+    """``[prepared]`` on the CPU at 64x64 and 96x64 with the served
+    models narrowed (a V-19-slim from the serving yaml, R-101 at narrow
+    widths from the uint8 pack), f32 in both arms: each replay bit-equal
+    to the eager request on the prepared weights, the trunk, FPN and head
+    against the plain chain, weights loaded after the capture reaching
+    the next replay, and the counters (V-19-slim folds 19 FrozenBNs,
+    R-101 104)."""
+    from test_torch_captured import FakeGraphs
+
+    r101 = _tiny_backbone_cfg(chip_smoke.resnet_cfg(101))
+    r101.TPU.S2D_STEM_INPUT = True
+    cfgs = {"V-39": _tiny_cfg(chip_smoke.serving_cfg()), "R-101": r101}
+    launches = chip_smoke.prepared_phase(
+        "cpu", cfgs, requests=((120, 64, 64), (121, 96, 64)),
+        graphs=FakeGraphs())
+    # 2 models x 2 arms x 2 requests x (3 at the capture + the prepared
+    # and the plain eager request); kernel 3 none on the CPU
+    assert launches == {"nms": 40, "roi_align": 40, "group_norm_relu": 0}
+    out = capsys.readouterr().out
+    for name in ("V-39", "R-101"):
+        for arm in ("f32", "bf16"):
+            for canvas in ("64x64", "96x64"):
+                assert f"  {name} {arm} uint8 {canvas}: 10 valid of 10; " \
+                    "the replay bit-equal to the eager request on the " \
+                    "prepared weights; decodes alike" in out
+    assert "V-39 bf16 uint8 64x64: weights loaded after the capture " \
+        "reach the next replay" in out
+    assert "  V-39 f32: 2 graphs; weights_prepared +1, " in out
+    assert "  V-39 bf16: 2 graphs; weights_prepared +3, " in out
+    assert out.count("folded_norms 19; process counters") == 2
+    assert out.count("folded_norms 104; process counters") == 2
+
+
 def test_keypoint_config_is_its_yaml():
     """``[keypoints]`` builds the keypoint yaml's config in Python, as
     ``[backbones]`` does its own: equal to the yaml merged over the

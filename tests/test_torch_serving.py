@@ -207,7 +207,15 @@ def test_serving_inputs_agree(serving_pair):
 
 def test_embedded_kernels_follow_new_weights(serving_pair):
     """A second load_jax_params (and a load_state_dict) rebuilds the s2d
-    stem's embedded kernels: the outputs equal a fresh model's."""
+    stem's embedded kernels: the outputs equal a fresh model's. The
+    captured program (``tests/test_torch_captured.py::FakeGraphs``)
+    reads the stem's folded kernels from its prepared weights: a second
+    load refreshes them in place, with no recapture, and its replay
+    equals a fresh model's program."""
+    from test_torch_captured import FakeGraphs
+
+    from centermask2_tpu_torch.export import CapturedInference
+
     _, got, params, port, (tight, _, th) = serving_pair
     first = port.backbone.s2d_kernels()
     assert port.backbone.s2d_kernels() is first  # cached per weights
@@ -230,6 +238,21 @@ def test_embedded_kernels_follow_new_weights(serving_pair):
     assert torch.equal(again.scores, got["pad_back"].scores)
     port.load_state_dict(fresh.state_dict())
     assert torch.equal(port.inference(x, None, th, CANVAS).scores, b.scores)
+    load_jax_params(port, params)
+
+    prog = CapturedInference(port, graphs=FakeGraphs())
+    first = prog(x, None, th, CANVAS).scores.clone()
+    stem = prog.weights.entries[(port.backbone, None)]
+    ptrs = [t.data_ptr() for t in stem]
+    load_jax_params(port, other)
+    got = prog(x, None, th, CANVAS)
+    assert len(prog) == 1
+    assert prog.weights.entries[(port.backbone, None)] is stem
+    assert [t.data_ptr() for t in stem] == ptrs
+    want = CapturedInference(fresh, graphs=FakeGraphs())(x, None, th, CANVAS)
+    for f in got._fields[:7]:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert not torch.equal(got.scores, first)
     load_jax_params(port, params)
 
 
