@@ -8,7 +8,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import weakref
 from typing import Iterable, Iterator, TypeVar
 
 T = TypeVar("T")
@@ -22,8 +21,8 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
     Exceptions in the producer re-raise at the consuming ``next()``.
     The producer thread is a daemon, so abandoning the iterator cannot
     hang interpreter exit, and it stops when the consumer's
-    ``close()``/``finally`` runs or the returned generator is garbage-
-    collected (weakref.finalize). There is deliberately no idle timeout:
+    ``close()``/``finally`` runs, which garbage collection of the returned
+    generator also does. There is deliberately no idle timeout:
     a consumer legitimately stalls for long stretches (first-call
     compiles, periodic evaluation). The consumer polls with a timeout
     and raises if the producer died without delivering its sentinel.
@@ -71,6 +70,4 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
         finally:
             stop.set()
 
-    g = gen()
-    weakref.finalize(g, stop.set)
-    return g
+    return gen()

@@ -23,14 +23,13 @@ image, so a caller that feeds arrays needs no PIL.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 
 from ..utils import tracing
-from ..utils.native import BUILD_ROOT, build_library
+from ..utils.native import BUILD_ROOT, load_library
 
 MIN_EDGE_SIZE = 800
 MAX_EDGE_SIZE = 1333
@@ -41,10 +40,8 @@ PIXEL_STD = np.array([1.0, 1.0, 1.0], np.float32)
 
 _S2D_SRC = Path(__file__).resolve().parent / "native" / "s2d.cpp"
 _S2D_BUILD_ROOT = BUILD_ROOT
-_S2D_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-              "-std=c++17"]
-_S2D_LIB = None
-_S2D_LOCK = threading.Lock()
+_S2D_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+              "-std=c++17")
 
 
 def compute_resize_shape(
@@ -123,27 +120,22 @@ def stem_space_to_depth(images_nhwc: np.ndarray) -> np.ndarray:
     return out.reshape(B, Ho, Wo, 16 * C)
 
 
+def _declare_s2d(lib: ctypes.CDLL) -> None:
+    i64 = ctypes.c_int64
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.s2d_preprocess_u8.restype = None
+    lib.s2d_preprocess_u8.argtypes = [u8p, i64, i64, i64, i64, f32p, f32p]
+    lib.s2d_preprocess_f32.restype = None
+    lib.s2d_preprocess_f32.argtypes = [f32p, i64, i64, i64, i64, f32p, f32p]
+    lib.s2d_pack_u8_rect.restype = None
+    lib.s2d_pack_u8_rect.argtypes = [u8p, i64, i64, i64, i64, i64, u8p]
+
+
 def _s2d_lib() -> ctypes.CDLL:
     """Build (once) and load the fused native pass; raises if g++ fails."""
-    global _S2D_LIB
-    with _S2D_LOCK:
-        if _S2D_LIB is None:
-            lib = ctypes.CDLL(str(build_library(
-                _S2D_SRC, _S2D_FLAGS, _S2D_BUILD_ROOT, "s2d")))
-            i64 = ctypes.c_int64
-            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-            lib.s2d_preprocess_u8.restype = None
-            lib.s2d_preprocess_u8.argtypes = [u8p, i64, i64, i64, i64, f32p,
-                                              f32p]
-            lib.s2d_preprocess_f32.restype = None
-            lib.s2d_preprocess_f32.argtypes = [f32p, i64, i64, i64, i64, f32p,
-                                               f32p]
-            lib.s2d_pack_u8_rect.restype = None
-            lib.s2d_pack_u8_rect.argtypes = [u8p, i64, i64, i64, i64, i64,
-                                             u8p]
-            _S2D_LIB = lib
-    return _S2D_LIB
+    return load_library(_S2D_SRC, _S2D_FLAGS, _S2D_BUILD_ROOT, "s2d",
+                        _declare_s2d)
 
 
 def _check_s2d_preprocess(image_hwc: np.ndarray, fixed_size: int) -> None:

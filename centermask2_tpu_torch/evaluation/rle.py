@@ -3,7 +3,7 @@ copy of ``centermask2_tpu/evaluation/rle.py``.
 
 ``native/maskapi.cpp`` is compiled with ``g++`` at first use into
 ``centermask2_tpu_torch/_build/maskapi-<hash>/libmaskapi.so`` by
-``utils/native.py::build_library`` (under a lock; a failed build
+``utils/native.py::load_library`` (under a lock; a failed build
 raises). The helpers are pycocotools-mask compatible: encode / decode /
 area / iou / merge and the compressed "counts" string codec.
 """
@@ -11,60 +11,50 @@ area / iou / merge and the compressed "counts" string codec.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
-from ..utils.native import BUILD_ROOT, build_library
-
-_LIB = None
-_LOCK = threading.Lock()
+from ..utils.native import BUILD_ROOT, load_library
 
 _SRC = Path(__file__).resolve().parent / "native" / "maskapi.cpp"
 _BUILD_ROOT = BUILD_ROOT
-_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
-def _build() -> Path:
-    """Compile the library unless it exists; raises if g++ fails."""
-    return build_library(_SRC, _FLAGS, _BUILD_ROOT, "maskapi")
+def _declare(lib: ctypes.CDLL) -> None:
+    i64, u32p, u8p = ctypes.c_int64, \
+        np.ctypeslib.ndpointer(np.uint32), np.ctypeslib.ndpointer(np.uint8)
+    i64p = np.ctypeslib.ndpointer(np.int64)
+    f64p = np.ctypeslib.ndpointer(np.float64)
+    i32p = np.ctypeslib.ndpointer(np.int32)
+    lib.rle_encode.restype = i64
+    lib.rle_encode.argtypes = [u8p, i64, i64, u32p]
+    lib.rle_decode.restype = None
+    lib.rle_decode.argtypes = [u32p, i64, i64, i64, u8p]
+    lib.rle_area.restype = ctypes.c_uint64
+    lib.rle_area.argtypes = [u32p, i64]
+    lib.rle_to_string.restype = i64
+    lib.rle_to_string.argtypes = [u32p, i64, ctypes.c_char_p, i64]
+    lib.rle_from_string.restype = i64
+    lib.rle_from_string.argtypes = [ctypes.c_char_p, i64, u32p, i64]
+    lib.rle_iou.restype = None
+    lib.rle_iou.argtypes = [u32p, i64p, i64p, i64, u32p, i64p, i64p, i64,
+                            i32p, f64p]
+    lib.bb_iou.restype = None
+    lib.bb_iou.argtypes = [f64p, i64, f64p, i64, i32p, f64p]
+    lib.rle_merge.restype = i64
+    lib.rle_merge.argtypes = [u32p, i64, u32p, i64, ctypes.c_int32, u32p,
+                              i64]
+    lib.coco_match.restype = None
+    lib.coco_match.argtypes = [f64p, i64, f64p, i64, i64, u8p, u8p, i64p,
+                               i64p, i64p, i64p, u8p]
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
-            i64, u32p, u8p = ctypes.c_int64, \
-                np.ctypeslib.ndpointer(np.uint32), np.ctypeslib.ndpointer(np.uint8)
-            i64p = np.ctypeslib.ndpointer(np.int64)
-            f64p = np.ctypeslib.ndpointer(np.float64)
-            i32p = np.ctypeslib.ndpointer(np.int32)
-            lib.rle_encode.restype = i64
-            lib.rle_encode.argtypes = [u8p, i64, i64, u32p]
-            lib.rle_decode.restype = None
-            lib.rle_decode.argtypes = [u32p, i64, i64, i64, u8p]
-            lib.rle_area.restype = ctypes.c_uint64
-            lib.rle_area.argtypes = [u32p, i64]
-            lib.rle_to_string.restype = i64
-            lib.rle_to_string.argtypes = [u32p, i64, ctypes.c_char_p, i64]
-            lib.rle_from_string.restype = i64
-            lib.rle_from_string.argtypes = [ctypes.c_char_p, i64, u32p, i64]
-            lib.rle_iou.restype = None
-            lib.rle_iou.argtypes = [u32p, i64p, i64p, i64, u32p, i64p, i64p,
-                                    i64, i32p, f64p]
-            lib.bb_iou.restype = None
-            lib.bb_iou.argtypes = [f64p, i64, f64p, i64, i32p, f64p]
-            lib.rle_merge.restype = i64
-            lib.rle_merge.argtypes = [u32p, i64, u32p, i64, ctypes.c_int32,
-                                      u32p, i64]
-            lib.coco_match.restype = None
-            lib.coco_match.argtypes = [f64p, i64, f64p, i64, i64, u8p, u8p,
-                                       i64p, i64p, i64p, i64p, u8p]
-            _LIB = lib
-    return _LIB
+    """Build (once) and load the library; raises if g++ fails."""
+    return load_library(_SRC, _FLAGS, _BUILD_ROOT, "maskapi", _declare)
 
 
 class RLE:

@@ -11,9 +11,11 @@ torch layout), ``bias`` stays ``bias``, the GroupNorm ``gn/scale`` is
 ``gn.weight``, a BatchNorm's ``bn/scale`` is ``bn.weight`` (its
 ``batch_stats`` ``bn/mean`` and ``bn/var`` are the buffers ``bn.mean`` and
 ``bn.var``), and FrozenBN keeps ``frozen_scale``/``frozen_bias``.
-Inside the captured serving program (``layers/prepared.py``) the convs,
-linears and FrozenBN ``ConvNormAct``s read weights prepared once per set
-of weights instead: cast, and with FrozenBN folded into the conv.
+The convs and linears take their cast weights from
+``prepared.weights``: computed on each call, or inside the captured
+serving program (``layers/prepared.py``) prepared once per set of
+weights, where a FrozenBN ``ConvNormAct`` also reads its norm folded
+into the conv.
 Each parameterised block has ``reset_parameters(generator)`` drawing the
 JAX initializer's distribution from an explicit ``torch.Generator``.
 """
@@ -109,24 +111,14 @@ class Conv2d(nn.Module):
     def prepare_weights(self, nhwc: bool):
         """(weight, bias) in the compute dtype, the weight channels-last
         for a channels-last input (``layers/prepared.py``)."""
-        fmt = torch.channels_last if nhwc else torch.contiguous_format
-        w = self.weight.detach().to(self.dtype, memory_format=fmt, copy=True)
-        b = None if self.bias is None else \
-            self.bias.detach().to(self.dtype, copy=True)
-        return w, b
+        fmt = torch.channels_last if nhwc else torch.preserve_format
+        return (self.weight.to(self.dtype, memory_format=fmt),
+                None if self.bias is None else self.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a channels-last input (the FCOS towers on the card) takes its
         # weight channels-last, as cuDNN's NHWC kernels read it
-        nhwc = prepared.is_channels_last(x)
-        store = prepared.active()
-        if store is not None:
-            w, b = store.get(self, nhwc)
-        else:
-            dt = self.dtype
-            b = None if self.bias is None else self.bias.to(dt)
-            w = self.weight.to(dt, memory_format=torch.channels_last if nhwc
-                               else torch.preserve_format)
+        w, b = prepared.weights(self, prepared.is_channels_last(x))
         return F.conv2d(x.to(w.dtype), w, b, self.stride, self.padding, 1,
                         self.groups)
 
@@ -163,18 +155,11 @@ class ConvTranspose2d(nn.Module):
         return [self.weight] + ([] if self.bias is None else [self.bias])
 
     def prepare_weights(self, fmt=None):
-        return (self.weight.detach().to(self.dtype, copy=True),
-                None if self.bias is None else
-                self.bias.detach().to(self.dtype, copy=True))
+        return (self.weight.to(self.dtype),
+                None if self.bias is None else self.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        store = prepared.active()
-        if store is not None:
-            w, b = store.get(self)
-        else:
-            dt = self.dtype
-            b = None if self.bias is None else self.bias.to(dt)
-            w = self.weight.to(dt)
+        w, b = prepared.weights(self)
         return F.conv_transpose2d(x.to(w.dtype), w, b, self.stride,
                                   self.padding)
 
@@ -202,16 +187,10 @@ class Linear(nn.Module):
         return [self.weight, self.bias]
 
     def prepare_weights(self, fmt=None):
-        return (self.weight.detach().to(self.dtype, copy=True),
-                self.bias.detach().to(self.dtype, copy=True))
+        return self.weight.to(self.dtype), self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        store = prepared.active()
-        if store is not None:
-            w, b = store.get(self)
-        else:
-            dt = self.dtype
-            w, b = self.weight.to(dt), self.bias.to(dt)
+        w, b = prepared.weights(self)
         return F.linear(x.to(w.dtype), w, b)
 
 
@@ -440,8 +419,7 @@ class ConvNormAct(nn.Module):
                                        None else c.bias.detach(),
                                        n.frozen_scale, n.frozen_bias)
         fmt = torch.channels_last if nhwc else torch.contiguous_format
-        return (w.to(c.dtype, memory_format=fmt, copy=True),
-                b.to(c.dtype, copy=True))
+        return w.to(c.dtype, memory_format=fmt), b.to(c.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         store = prepared.active()

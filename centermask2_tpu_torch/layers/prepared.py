@@ -20,10 +20,11 @@ is for, computed from the parameters once:
 
 Only ``export/captured.py::CapturedInference`` reads the store: its
 warm-ups and captures run inside ``serving()``, and a module reads its
-prepared tensors only there and with autograd off. Every other path
-(eager inference, training, ``torch.export``, the FLOP count, the layer
-dump) runs the plain chain. The store is made at the first call inside
-``serving()``, each entry at its module's first call, never while
+prepared tensors only there and with autograd off (``weights``). Every
+other path (eager inference, training, ``torch.export``, the FLOP
+count, the layer dump) runs the plain chain. The store is made at the
+first call inside ``serving()``, each entry at its module's first call
+(a detached copy of what ``prepare_weights`` returns), never while
 ``capturing``: a module that meets a new input format during a capture
 raises, so nothing is allocated inside a graph. ``refresh()`` (once per
 request, before the replay) compares each source tensor's data pointer
@@ -68,13 +69,23 @@ def is_channels_last(x: torch.Tensor) -> bool:
         x.is_contiguous(memory_format=torch.channels_last)
 
 
+def weights(module: nn.Module, fmt=None) -> Tuple[torch.Tensor, ...]:
+    """``module``'s tensors for input format ``fmt``: the store's inside
+    ``serving()`` (``active``), else ``module.prepare_weights(fmt)``, the
+    plain chain's, computed on this call."""
+    store = active()
+    if store is None:
+        return module.prepare_weights(fmt)
+    return store.get(module, fmt)
+
+
 class PreparedWeights:
     """The prepared tensors of ``model``'s modules (the module
     docstring). A module that takes part has ``prepare_weights(fmt)``,
-    which returns its tensors (fresh, detached) for the input format
-    ``fmt``, ``prepared_sources()``, the parameters and buffers they are
-    computed from, and ``prepared_counts``, the (convs, folded norms) it
-    stands for."""
+    which returns its tensors for the input format ``fmt`` (the store
+    keeps a detached copy of each), ``prepared_sources()``, the
+    parameters and buffers they are computed from, and
+    ``prepared_counts``, the (convs, folded norms) it stands for."""
 
     def __init__(self, model: nn.Module):
         seen, sources = set(), []
@@ -122,8 +133,9 @@ class PreparedWeights:
                 f"{type(module).__name__} met input format {fmt!r} during a "
                 "capture with no prepared weights for it: the warm-up "
                 "before the capture runs every format first")
-        with torch.no_grad():
-            e = tuple(module.prepare_weights(fmt))
+        with torch.no_grad():  # the entry owns its storage
+            e = tuple(None if t is None else t.detach().clone()
+                      for t in module.prepare_weights(fmt))
         self.entries[(module, fmt)] = e
         convs, folded = module.prepared_counts
         self.convs += convs

@@ -17,7 +17,6 @@ deformable 3x3 layers (``layers/deform.py::DeformConvBlock``, DCN v2 with
 
 from __future__ import annotations
 
-import weakref
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -163,9 +162,11 @@ def s2d_stem_kernels(k1: StemParams, k2: StemParams, k3: StemParams,
     the biases become the convs' (stem_3's once, on its first half).
 
     XLA folds these into constants of the JAX program; in eager PyTorch
-    they cost some eighty small launches, so ``VoVNet`` builds them once
-    per set of weights for inference. The build is linear in the
-    parameters and differentiable (slice writes into zeros). Packing (JAX ``vovnet.py:244-254``): stem_1's
+    they cost some eighty small launches on every forward, which the
+    captured serving program leaves out: it reads them folded from its
+    prepared weights, built once per set of weights. The build is linear
+    in the parameters and differentiable (slice writes into zeros).
+    Packing (JAX ``vovnet.py:244-254``): stem_1's
     four phases in one conv; stem_2's phases paired over Q in (2, 3)
     kernels with each phase's 2x2 kernel at column offset Q; stem_3's
     phase-(0,0) kernel split channel-wise over the two stem_2 pairs."""
@@ -321,14 +322,13 @@ class VoVNet(nn.Module):
     coordinates (``s2d_stem_forward``); standard-conv bodies with
     FrozenBN only, as in the JAX package. The parameters stay the
     logical ``stem_{1,2,3}`` 3x3 kernels, so checkpoints load unchanged.
-    With grad enabled (training) the embedded kernels are built from them
-    inside the autograd graph on every forward, so the stem trains as the
-    plain stem does. Under ``no_grad`` (inference) they are built at the
-    first forward and again whenever a stem parameter was replaced, moved
-    or written in place (its tensor, storage or version counter
-    changed). In the captured serving program they come folded from the
-    prepared weights (``layers/prepared.py``), made once per set of
-    weights outside the graph."""
+    In the captured serving program the embedded kernels come folded from
+    the prepared weights (``layers/prepared.py``), made once per set of
+    weights outside the graph. Everywhere else they are built from the
+    parameters on every forward: inside the autograd graph in training,
+    so the stem trains as the plain stem does; traced by ``torch.export``;
+    recorded by any other CUDA graph, whose replays then read the stem's
+    weights as they are (training updates them in place)."""
 
     def __init__(self, body: str = "V-39-eSE",
                  out_features: Sequence[str] = ("stage2", "stage3", "stage4",
@@ -347,7 +347,6 @@ class VoVNet(nn.Module):
                 f"only, got {body!r} with norm {norm!r}")
         self.s2d_input = s2d_input
         self.dtype = dtype
-        self._s2d_cache = None
         self.out_features = tuple(out_features)
         stem = spec["stem"]
         self.stem_1 = ConvNormAct(in_channels, stem[0], strides=(2, 2),
@@ -397,22 +396,6 @@ class VoVNet(nn.Module):
                               self.dtype, fold=True)
         return (kn.k1, *kn.k2, *kn.k3, kn.a1[1], kn.a2[1], kn.a3[1])
 
-    def s2d_kernels(self) -> S2DStemKernels:
-        """The s2d stem's kernels for the current stem parameters, built
-        once per set of weights, detached: the inference path's (see the
-        class docstring)."""
-        srcs = self._stem_sources()
-        key = tuple((t.data_ptr(), t._version) for t in srcs)
-        c = self._s2d_cache
-        if c is None or c[1] != key or \
-                any(ref() is not t for ref, t in zip(c[0], srcs)):
-            with torch.no_grad():
-                kernels = s2d_stem_kernels(
-                    *(tuple(t.detach() for t in srcs[i:i + 3])
-                      for i in (0, 3, 6)), self.dtype)
-            self._s2d_cache = ([weakref.ref(t) for t in srcs], key, kernels)
-        return self._s2d_cache[2]
-
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if not self.s2d_input:
             return self.stem_3(self.stem_2(self.stem_1(x)))
@@ -422,19 +405,9 @@ class VoVNet(nn.Module):
             return s2d_stem_forward(x, S2DStemKernels(
                 k1, (k2a, k2b), (k3a, k3b), (None, b1), (None, b2),
                 (None, b3)))
-        # a differentiable function of the stem; under torch.export (fake
-        # parameters, no data pointer for the cache's key) a traced one;
-        # in any other CUDA graph one built by the graph, so that every
-        # replay reads the stem's weights as they are then (training
-        # updates them in place)
-        if torch.is_grad_enabled() or torch.compiler.is_exporting() or (
-                x.is_cuda and torch.cuda.is_current_stream_capturing()):
-            srcs = self._stem_sources()
-            kernels = s2d_stem_kernels(*(tuple(srcs[i:i + 3])
-                                         for i in (0, 3, 6)), self.dtype)
-        else:
-            kernels = self.s2d_kernels()
-        return s2d_stem_forward(x, kernels)
+        srcs = self._stem_sources()
+        return s2d_stem_forward(x, s2d_stem_kernels(
+            *(tuple(srcs[i:i + 3]) for i in (0, 3, 6)), self.dtype))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)

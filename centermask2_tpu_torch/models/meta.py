@@ -87,6 +87,20 @@ class InferenceOutputs(NamedTuple):
     pred_keypoints: Optional[torch.Tensor] = None
 
 
+def per_image(fn, images: torch.Tensor,
+              image_sizes: Optional[torch.Tensor] = None,
+              valid_hw: Optional[torch.Tensor] = None) -> InferenceOutputs:
+    """``fn(images, image_sizes, valid_hw)``, a B = 1 program, on each
+    image of the batch in order, its outputs stacked."""
+    def part(t, i):
+        return None if t is None else t[i:i + 1]
+
+    outs = [fn(images[i:i + 1], part(image_sizes, i), part(valid_hw, i))
+            for i in range(images.shape[0])]
+    return InferenceOutputs(*(None if f[0] is None else torch.cat(f)
+                              for f in zip(*outs)))
+
+
 class GroundTruth(NamedTuple):
     """Padded per-batch training targets (the host pipeline's output,
     ``data/coco.py::train_batches``)."""
@@ -475,14 +489,7 @@ class CenterMask(nn.Module):
         """Batched serving as one B = 1 program per image, in order (JAX
         ``meta.py:400-434`` maps the single-image program over the batch
         with ``lax.map``), outputs stacked. Defaults as ``inference``."""
-        def part(t, i):
-            return None if t is None else t[i:i + 1]
-
-        outs = [self.inference(images[i:i + 1], part(image_sizes, i),
-                               part(valid_hw, i))
-                for i in range(images.shape[0])]
-        return InferenceOutputs(*(None if f[0] is None else torch.cat(f)
-                                  for f in zip(*outs)))
+        return per_image(self.inference, images, image_sizes, valid_hw)
 
 
     # ------------------------------------------------------------------

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from ..export.captured import CapturedInference, supports_graphs
-from ..models.meta import CenterMask, InferenceOutputs
+from ..models.meta import CenterMask, InferenceOutputs, per_image
 from ..utils.comm import Group, all_gather_cat, world_group
 from .mesh import local_rows
 
@@ -36,21 +36,14 @@ def make_dp_inference(model: CenterMask, group: Group = None):
     fn = CapturedInference(model) \
         if supports_graphs(next(model.parameters()).device) else None
 
+    def replay(*args):  # a replay's outputs are the graph's buffers
+        return InferenceOutputs(*(None if v is None else v.clone()
+                                  for v in fn(*args)))
+
     def run_local(images, image_sizes, valid_hw):
         if fn is None:
             return model.inference_batched(images, image_sizes, valid_hw)
-
-        def part(t, i):
-            return None if t is None else t[i:i + 1]
-
-        # a replay's outputs are the graph's buffers: copy each out
-        outs = [InferenceOutputs(*(None if v is None else v.clone()
-                                   for v in fn(images[i:i + 1],
-                                               part(image_sizes, i),
-                                               part(valid_hw, i))))
-                for i in range(images.shape[0])]
-        return InferenceOutputs(*(None if f[0] is None else torch.cat(f)
-                                  for f in zip(*outs)))
+        return per_image(replay, images, image_sizes, valid_hw)
 
     def infer(images: torch.Tensor,
               image_sizes: Optional[torch.Tensor] = None,

@@ -8,17 +8,24 @@ CPU that g++ resolves it to (``.gitignore`` lists ``_build/``).
 Processes that build it at once (pytest-xdist workers, several processes
 sharing a checkout) serialize on an fcntl lock, and the compiler writes
 a temporary file that is renamed into place, so no process loads half a
-library. A failed build raises: there is no fallback.
+library. A failed build raises: there is no fallback. ``load_library``
+builds and loads a library once a process, under one lock, and keeps
+it: later calls take no lock.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Dict, Sequence, Tuple
+
+_LIBS: Dict[Tuple, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 # where the port's host libraries are built (``.gitignore`` lists it)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -72,3 +79,23 @@ def build_library(src: Path, flags: Sequence[str], build_root: Path,
         finally:
             fcntl.flock(lockf, fcntl.LOCK_UN)
     return so
+
+
+def load_library(src: Path, flags: Tuple[str, ...], build_root: Path,
+                 name: str, declare: Callable[[ctypes.CDLL], None]
+                 ) -> ctypes.CDLL:
+    """The loaded library of ``build_library(src, flags, build_root,
+    name)``, with ``declare(lib)`` (its functions' ``argtypes`` and
+    ``restype``) run once; built and loaded at the first call of this
+    process for those arguments, under a lock, then kept."""
+    key = (src, flags, build_root, name)
+    lib = _LIBS.get(key)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LIBS.get(key)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_library(src, flags, build_root,
+                                                    name)))
+                declare(lib)
+                _LIBS[key] = lib
+    return lib

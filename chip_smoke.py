@@ -7,7 +7,7 @@ NVIDIA GPU.
 It builds the port's CUDA kernels from ``centermask2_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 V-39-eSE flagship (random weights from a seed) through the kernels, and
-times the kernels and the end-to-end latency; then it serves and trains
+times the kernels; then it serves and trains
 the other backbone families and the person-keypoint model, serves
 the flagship with the adaptive ROIAlign buckets and with deformable
 convs, trains, serves and evaluates it data-parallel, and drives the
@@ -43,17 +43,13 @@ Phases, in order:
             ``build_centermask`` + ``inference``, with the launch counts
             reset before and read after (each kernel once per request),
             one request under CUDA's sync-debug mode (no host sync on the
-            path), and an f32 request through the kernels and through the
+            path), an f32 request through the kernels and through the
             plain versions (swapped in for the kernels), compared slot by
-            slot.
+            slot, and an f32 1344x1344 request with every output finite.
 5. time:    each kernel against its plain version on the inputs
             captured from a served bf16 800x1088 request, then both timed
             there (the times of the ``kernels`` line), and the profiler's
-            device time per CUDA kernel of each; per-image latency at
-            B = 1, 800x1088 and 1344x1344, bf16 and f32, over timed
-            windows of a few seconds, twice, with host enqueue and CPU
-            time beside the device events; a profiler breakdown of one
-            bf16 800x1088 request.
+            device time per CUDA kernel of each.
 6. graphs:  the flagship through ``export/captured.py::CapturedInference``
             at 800x1088 and 1344x1344, bf16 and f32: launch counts at the
             capture (warm-up + capture) and none at a replay (kernel 3:
@@ -61,10 +57,7 @@ Phases, in order:
             capture), one launch of kernels 1 and 2 per replay by the
             profiler, the f32 replay
             against the eager request slot by slot, the bf16 one with
-            its worst difference; per-request ms (bf16) with the input's
-            and outputs' copies, host enqueue, device ms per replay and
-            idle share beside the eager medians of ``time``; capture
-            seconds and pool memory. Every ``graph_requests`` program
+            its worst difference; capture seconds and pool memory. Every ``graph_requests`` program
             (here and in the later phases) is held to its section ring
             (``check_ring_rows``): one row a call with its program's key
             and its six stamps non-decreasing, each row's first stamp at
@@ -88,9 +81,7 @@ Phases, in order:
             launch of each kernel, timed at N = 5000; each kernel held
             against its plain version on the inputs captured from every
             one of these requests (f32 and bf16, pad-back, the three
-            tight canvases, per-level); device ms per request as a CUDA
-            graph at each tight canvas and at 1344x1344 pad-back, host
-            pack ms and bytes per request. ``serve`` and ``serving`` count
+            tight canvases, per-level). ``serve`` and ``serving`` count
             the decode's top-k selections with a tie at the k-th place.
 8. eval:    ``evaluation/loop.py::evaluate_dataset`` over a synthetic COCO
             set of 8 ``.npy`` images (the three canvases; polygons over
@@ -140,8 +131,7 @@ Phases, in order:
             request, 3 at a capture, none at a replay; one per replay by
             the profiler; the replay equal to the eager request slot by
             slot), each kernel against its plain version on the
-            request's inputs, a 4 s captured and a 4 s eager window; the
-            same request in f32 (TF32 off) at 800x1088; the eval entry
+            request's inputs; the same request in f32 (TF32 off) at 800x1088; the eval entry
             point over the 8-image synthetic set, captured and eager,
             equal predictions and proposals; training at 1344x1344, B = 2,
             FREEZE_AT 2, captured then eager (launches, finite losses,
@@ -149,10 +139,8 @@ Phases, in order:
             images/s, peak memory, a step's device time) and one f32 step
             through the kernels against the plain versions. R-101,
             MobileNetV2, V-19-dw-eSE and V-19-slim-dw-eSE: one 800x1088
-            request each, eager and captured, with 2 s windows. A
-            ``[backbones]`` line per model and canvas: captured ms and
-            quartiles, device ms, idle share, eager ms, graph pool,
-            parameters. Then R-50 and R-101 with TPU.S2D_STEM_INPUT
+            request each, eager and captured. A ``[backbones]`` line per
+            model: capture seconds, graph pool, parameters. Then R-50 and R-101 with TPU.S2D_STEM_INPUT
             served from the uint8 s2d pack, captured, at 800x1088 and at
             the 800x1344 tight canvas (``resnet_u8_requests``): each
             replay bit-equal to the eager request and to the f32 host
@@ -171,14 +159,16 @@ Phases, in order:
             ``weights_prepared``, ``prepared_convs``, ``folded_norms``.
             Wherever a phase holds a replay equal to "the eager
             request", that request runs on the program's prepared
-            weights (``prepared_eager``).
+            weights (``prepared_eager``); each ``graph_requests``
+            canvas also runs once on the plain chain
+            (``plain_request``).
 12. keypoints: ``centermask_V_39_eSE_FPN_keypoint_ms_3x.yaml`` from a
             Python copy (``keypoint_cfg``), full width, bf16: requests at
             800x1088 and 1344x1344 eagerly and through
             ``CapturedInference`` (launches, the replay equal to the
             eager request slot by slot, ``pred_keypoints`` included,
             kernels 1 and 2 against their plain versions on the request's
-            inputs, 4 s captured and eager windows); the eval entry
+            inputs); the eval entry
             point over 8 synthetic person-keypoint images, captured and
             eager, equal predictions, the OKS task, and the ground truth
             fed back at AP 100; training captured then eager (launches,
@@ -191,7 +181,7 @@ Phases, in order:
             f32 step (three launches of kernels 2 and 2b, each held;
             kernel 2b at s = 4 timed); the flagship with modulated DCN in
             stages 4-5 and the deformable FCOS towers: a request eager
-            and captured, the replay equal to eager, 2 s windows.
+            and captured, the replay equal to eager.
 13. parallel: data parallelism (``parallel_phase``). A process group of
             one over NCCL in this process: the flagship bf16 train step
             through the data-parallel captured step (its all-reduce in
@@ -271,7 +261,6 @@ import contextlib
 import gc
 import json
 import os
-import resource
 import subprocess
 import sys
 import time
@@ -327,14 +316,6 @@ GRAD_NOISE_FACTOR = 4.0
 # the largest gradient of the same module, and not compared
 ZERO_GRADS = ("roi_heads.keypoint_head.score_lowres.bias",)
 ZERO_GRAD_REL = 1e-4
-
-# end-to-end timing: each canvas and dtype gets a warm-up, then a timed
-# window of at least WINDOW_S seconds and MIN_TIMED requests; the sweep
-# over canvases and dtypes runs twice (two windows each)
-WARMUP_S = 1.5
-WINDOW_S = 4.0
-MIN_TIMED = 10
-PASSES = 2
 
 NMS_SIZES = (1024, 2048, 8192)
 # sizes of the hard NMS cases (8192: the scan's dynamic shared memory)
@@ -1282,6 +1263,9 @@ def serve(dev):
     n = compare_outputs(ok, op, K, "f32 kernels vs plain")
     log(f"  f32 {REQUESTS[0][1]}x{REQUESTS[0][2]}: {n} valid slots, "
         "classes equal")
+    _, H, W = REQUESTS[3]
+    n = check_outputs(model32.inference(images[3]), 1, K, f"f32 {H}x{W}")
+    log(f"  f32 {H}x{W}: {n} valid of {K}, every output finite")
     return {"bfloat16": model, "float32": model32}, launches, images
 
 
@@ -1370,132 +1354,6 @@ def profile_kernels(seen) -> None:
                 f"{kernel.split('(')[0][-40:]} (x{e.count})")
 
 
-def gpu_clocks() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-
-
-def device_ms_per_request(request, request_ms: float) -> float:
-    """Device time of one request with the host out of the way: the
-    request captured once into a CUDA graph (its ~1,500 launches overflow
-    CUDA's launch queue, so queueing them behind a GPU sleep cannot hide
-    the host), replayed back to back and timed by events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        request()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        acc = request()
-    graph.replay()
-    torch.cuda.synchronize()
-    reps = int(min(50, max(3, 1000.0 / request_ms)))
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        graph.replay()
-    b.record()
-    b.synchronize()
-    if not torch.isfinite(acc):
-        raise AssertionError("non-finite result of the replayed request")
-    return a.elapsed_time(b) / reps
-
-
-def latency_window(model, img, seconds: float = WINDOW_S,
-                   warmup_s: float = WARMUP_S) -> dict:
-    """Per-request ms at B = 1 over a window of ``seconds`` (at least
-    ``MIN_TIMED`` requests) after ``warmup_s`` of warm-up requests, every
-    output head reduced into the result (nothing is left for the device to
-    skip). Each request is timed by CUDA events around it (``ms``) and by
-    the host's wall time to enqueue it (``enqueue``). Over the window: the
-    calling thread's CPU time as a share of the enqueue time (the thread
-    clock ticks too coarsely to read per request), Python's garbage
-    collection time, and the thread's involuntary context switches. Then
-    the device time per request, replayed as a CUDA graph."""
-    def request():
-        return reduce_outputs(model.inference(img))
-
-    t_end = time.perf_counter() + warmup_s
-    n = 0
-    while n < 3 or time.perf_counter() < t_end:
-        request()
-        n += 1
-    torch.cuda.synchronize()
-
-    gc_s = [0.0, 0.0]  # start of the running collection, total
-
-    def on_gc(phase, info):
-        if phase == "start":
-            gc_s[0] = time.perf_counter()
-        else:
-            gc_s[1] += time.perf_counter() - gc_s[0]
-
-    ms, enqueue = [], []
-    cpu_s = 0.0
-    ru0 = resource.getrusage(resource.RUSAGE_THREAD)
-    gc.callbacks.append(on_gc)
-    try:
-        t_end = time.perf_counter() + seconds
-        while len(ms) < MIN_TIMED or time.perf_counter() < t_end:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            w0, c0 = time.perf_counter(), time.thread_time()
-            acc = request()
-            c1, w1 = time.thread_time(), time.perf_counter()
-            b.record()
-            b.synchronize()
-            if not torch.isfinite(acc):
-                raise AssertionError("non-finite timed result")
-            ms.append(a.elapsed_time(b))
-            enqueue.append((w1 - w0) * 1e3)
-            cpu_s += c1 - c0
-    finally:
-        gc.callbacks.remove(on_gc)
-    ru1 = resource.getrusage(resource.RUSAGE_THREAD)
-    dev_ms = device_ms_per_request(request, float(np.median(ms)))
-    q0, q1, q2, q3, q4 = np.percentile(ms, [0, 25, 50, 75, 100])
-    return {"n": len(ms), "warmup": n, "min": q0, "q1": q1, "median": q2,
-            "q3": q3, "max": q4, "first20": float(np.median(ms[:20])),
-            "enqueue": float(np.median(enqueue)),
-            "cpu_share": cpu_s * 1e3 / sum(enqueue),
-            "gc_ms": gc_s[1] * 1e3 / len(ms),
-            "ivcsw": (ru1.ru_nivcsw - ru0.ru_nivcsw) / len(ms),
-            "device": dev_ms}
-
-
-def profile_request(request, what: str) -> None:
-    """Device kernel time of one ``request()`` by the profiler, against its
-    wall time, and the largest CUDA kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    request()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        request()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-           and getattr(e, "device_time_total", 0) > 0]
-    total = sum(e.device_time_total for e in evs) / 1e3
-    if total == 0:
-        log("  profiler: no device time recorded (not measured)")
-        return
-    log(f"  profiler, one {what}: device kernel time "
-        f"{total:.3f} ms in {wall:.3f} ms wall (device idle share "
-        f"{max(0.0, 1 - total / wall):.3f}, profiler on)")
-    for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
-        log(f"    {e.device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-            f"{e.key[:90]}")
-
-
 # ---------------------------------------------------------------- graphs
 # the CUDA kernels of each port kernel, as the profiler names them
 KERNEL_CUDA_FNS = {"nms": ("nms_mask_kernel", "nms_scan_kernel"),
@@ -1511,7 +1369,8 @@ GRAPH_CANVASES = ((100, 800, 1088), (103, 1344, 1344))
 # measures how often); with it, a window of five such replays (168,761
 # device events) still lost one replay's records once, so each replay
 # gets a window of its own
-REPLAY_PAD_CYCLES = int(1.98e9 * 0.020)
+SLEEP_HZ = 1.98e9  # the clock torch.cuda._sleep counts, at its highest
+REPLAY_PAD_CYCLES = int(SLEEP_HZ * 0.020)
 
 
 def replay_launches(run, n: int, kernels, what: str, per_call=None) -> int:
@@ -1586,45 +1445,6 @@ def replay_ms(run, reps: int = TIMED_REPLAYS) -> float:
     return a.elapsed_time(b) / reps
 
 
-def captured_window(prog, x_host, seconds: float) -> dict:
-    """Per-request ms at B = 1 through a captured program, each request
-    a new input copied from pinned host memory into the graph's input,
-    the replay, and the outputs copied into pinned host buffers, timed by
-    CUDA events, with the host's enqueue time; then the device ms per
-    replay alone (back to back, input already on the card)."""
-    host = []
-
-    def request():
-        out = [t for t in prog(x_host) if t is not None]
-        if not host:
-            host.extend(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                        for t in out)
-        for h, t in zip(host, out):
-            h.copy_(t, non_blocking=True)
-
-    for _ in range(3):
-        request()
-    torch.cuda.synchronize()
-    ms, enqueue = [], []
-    t_end = time.perf_counter() + seconds
-    while len(ms) < MIN_TIMED or time.perf_counter() < t_end:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        w0 = time.perf_counter()
-        request()
-        w1 = time.perf_counter()
-        b.record()
-        b.synchronize()
-        ms.append(a.elapsed_time(b))
-        enqueue.append((w1 - w0) * 1e3)
-    x_dev = x_host.to(prog.device)
-    q1, q2, q3 = np.percentile(ms, [25, 50, 75])
-    return {"n": len(ms), "q1": q1, "median": q2, "q3": q3,
-            "enqueue": float(np.median(enqueue)),
-            "device": replay_ms(lambda: prog(x_dev))}
-
-
 # the five sections summed over the CUDA events around a replay: at most
 # the events' time (less the input's copy and the launch), at least 98%
 SECTION_COVER = (0.98, 1.001)
@@ -1648,10 +1468,11 @@ def check_ring_rows(prog, row0: int, calls: int, key: int, what: str,
     ``calls`` calls of its program ``key`` from cursor ``row0``: one row
     a call, each with ``key`` and non-decreasing stamps, starting at or
     after the row before it ended (the calls run in stream order). With
-    ``run`` (on the card), ``SECTION_COVER_REPLAYS`` calls more, each
-    between CUDA events behind a device sleep (the replay queued before
-    the first event): the five sections summed within ``SECTION_COVER``
-    of the events' time."""
+    ``run`` (on the card), a call timed on the host, then
+    ``SECTION_COVER_REPLAYS`` calls more, each between CUDA events behind
+    a device sleep that outlasts the host's enqueue of a call (the replay
+    queued before the first event): the five sections summed within
+    ``SECTION_COVER`` of the events' time."""
     ring = prog.ring
     n = int(ring.cursor) - row0
     if n != calls or calls > ring.rows:
@@ -1664,13 +1485,25 @@ def check_ring_rows(prog, row0: int, calls: int, key: int, what: str,
                              f"{key}, or stamps out of order")
     note = ""
     if run is not None:
+        # once the profiler has run in the process, the host takes 15-20 ms
+        # to enqueue an f32 1344x1344 replay (~34k kernels): a sleep of
+        # REPLAY_PAD_CYCLES no longer hides it, and the device idles
+        # inside the events; four times the first call's enqueue does
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        enqueue = [time.perf_counter() - t0]
+        torch.cuda.synchronize()
+        pad = max(REPLAY_PAD_CYCLES, int(4 * enqueue[0] * SLEEP_HZ))
         cover = []
         for _ in range(SECTION_COVER_REPLAYS):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(REPLAY_PAD_CYCLES)
+            torch.cuda._sleep(pad)
             a.record()
+            t0 = time.perf_counter()
             run()
+            enqueue.append(time.perf_counter() - t0)
             b.record()
             b.synchronize()
             row = ring.read()[-1]
@@ -1679,10 +1512,12 @@ def check_ring_rows(prog, row0: int, calls: int, key: int, what: str,
                    for c in cover):
             raise AssertionError(f"{what}: the sections cover {cover} of "
                                  f"the replays' event time")
-        calls += SECTION_COVER_REPLAYS
+        calls += SECTION_COVER_REPLAYS + 1
         note = (f"; the five sections cover "
                 + ", ".join(f"{c:.4f}" for c in cover)
-                + " of the CUDA events around a replay")
+                + f" of the CUDA events around a replay (sleeps of "
+                f"{pad / SLEEP_HZ * 1e3:.1f} ms; the host enqueues a call in "
+                f"at most {max(enqueue) * 1e3:.2f} ms)")
     STAMP_ROWS[0] += calls
     log(f"  {what}: {calls} ring rows for {calls} calls, key {key}, "
         f"stamps non-decreasing{note}")
@@ -1698,8 +1533,7 @@ def fused_tower_norms(model) -> int:
         for i in range(t.num_convs))
 
 
-def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
-                   eager_ms=None, graphs=None, errs=None,
+def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
                    roi_per_request: int = 1) -> dict:
     """``model`` (``name``) at each canvas of ``canvases`` ((seed, H, W)),
     eagerly and through one ``CapturedInference``. Gates: one launch of
@@ -1711,15 +1545,15 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     against the eager request on the program's prepared weights
     (``prepared_eager``) slot by slot (``compare_outputs``, a
     keypoint model's ``pred_keypoints`` included; bit-equality and the
-    worst differences printed). With ``errs``, each kernel launch held
+    worst differences printed). Then the request on the plain chain
+    (``plain_request``: outputs checked, the same launches, held to the
+    prepared request by ``[prepared]``'s f32 gate). With ``errs``, each
+    kernel launch held
     against its plain version on the eager request's inputs, the worst
-    errors into ``errs``. With ``window_s``, a captured window of that many
-    seconds at each canvas beside the eager median of ``eager_ms`` at
-    (H, W), or of an eager window of ``window_s`` where it has none; one
-    line a canvas with the graph pool and the parameter count. After each
-    canvas the program's section ring (``check_ring_rows``): a row a
-    call, with the canvas's program key (its index in ``canvases``).
-    Returns the launches counted."""
+    errors into ``errs``. After each canvas the program's section ring
+    (``check_ring_rows``): a row a call, with the canvas's program key
+    (its index in ``canvases``); then one line with the graph pool and
+    the parameter count. Returns the launches counted."""
     from centermask2_tpu_torch.export import CapturedInference
     from centermask2_tpu_torch.export.captured import WARMUP_CALLS
     from centermask2_tpu_torch.ops import _kernels
@@ -1738,7 +1572,6 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     prog = CapturedInference(model, graphs=graphs)
     call = Counted(prog)
     eager_request = prepared_eager(model)  # the weights the replays read
-    rows = []
     for key, (seed, H, W) in enumerate(canvases):
         img = make_image(seed, H, W, dev)
         what = f"{name} {short} {H}x{W}"
@@ -1786,6 +1619,7 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
             + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
             + f"; the eager request allocates at its peak "
             f"{peak / 2 ** 20:.1f} MiB above its start")
+        plain_request(model, img, eager_request, K, want[0], launches, what)
         if errs is not None:
             for args in seen["nms_keep_sorted"]:
                 errs["nms"] = max(errs["nms"],
@@ -1798,15 +1632,6 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
         replay_launches(lambda: call(img), GRAPH_REPLAYS,
                         ("nms", "roi_align"), f"{what} replays",
                         per_call={"nms": 1, "roi_align": roi_per_request})
-        if window_s:
-            r = captured_window(call, img.cpu().pin_memory(), window_s)
-            eager = (eager_ms or {}).get((H, W))
-            source = "[time]"
-            if eager is None:
-                eager = latency_window(model, img, window_s,
-                                       warmup_s=0.5)["median"]
-                source = f"a {window_s} s window"
-            rows.append((H, W, r, eager, source))
         check_ring_rows(prog, row0, call.calls - calls0, key,
                         f"{what} section ring",
                         (lambda: call(img)) if cuda else None)
@@ -1815,36 +1640,70 @@ def graph_requests(dev, name: str, model, canvases, window_s: float = 0.0,
     log(f"  {name} {short}: {len(prog)} graphs captured in "
         f"{prog.capture_s:.3f} s (warm-up included); graph pool "
         f"{pool / 2 ** 20:.1f} MiB; {n_params} parameters ({card})")
-    for H, W, r, eager, source in rows:
-        log(f"  {name} {short} {H}x{W}: captured {r['median']:.3f} ms/img "
-            f"[q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] over {r['n']} requests "
-            f"with the input's and the outputs' copies, host enqueue median "
-            f"{r['enqueue']:.3f}; device {r['device']:.3f} ms a replay (idle "
-            f"share {max(0.0, 1 - r['device'] / r['median']):.3f}); eager "
-            f"median {eager:.3f} ms ({source}); graph pool "
-            f"{pool / 2 ** 20:.1f} MiB ({len(prog)} graphs); {n_params} "
-            f"parameters ({card})")
     del prog
     return launches
 
 
-def graphs_phase(dev, models, eager_ms: dict, canvases=GRAPH_CANVASES,
-                 graphs=None, timing: bool = True) -> dict:
+def plain_request(model, img, prepared, K: int, per_request, launches,
+                  what: str) -> None:
+    """``model.inference(img)`` on the plain chain (weights cast on each
+    call, FrozenBN unfolded: eager eval's, the CLIs' and
+    ``torch.export``'s path) beside ``prepared(img)``, the same request
+    on the prepared weights (``prepared_eager``). Gates: the plain
+    outputs' shapes, finiteness and a valid detection
+    (``check_outputs``); each request launching kernels 1, 2 and 3
+    ``per_request`` times, added to ``launches``; every trunk, FPN and
+    FCOS output of the two above cosine ``LAYER_COS``, the outputs too
+    where both decodes selected alike (``[prepared]``'s f32 gate). It
+    holds in bf16 too: these models keep FrozenBN's initial statistics
+    (scale 1, shift 0), which fold exactly; ``[prepared]`` draws them,
+    and holds the bf16 chains, which then round apart, to an f32
+    reference."""
+    from centermask2_tpu_torch.ops import _kernels
+
+    outs = []
+
+    def plain_run():
+        outs.append(model.inference(img))
+        return outs[0]
+
+    _kernels.reset_launch_counts()
+    plain = layer_outputs(model, plain_run)
+    prep = layer_outputs(model, lambda: prepared(img))
+    counts = _kernels.launch_counts()
+    got = (counts["nms"], counts["roi_align"], counts["group_norm_relu"])
+    if got != tuple(2 * c for c in per_request):
+        raise AssertionError(f"{what}: launches {got} for a plain and a "
+                             f"prepared request, {per_request} each "
+                             "expected")
+    for k in launches:
+        launches[k] += counts[k]
+    n = check_outputs(outs[0], 1, K, f"{what} plain chain")
+    alike, keys = gated_keys(prep, plain)
+    d = layer_cos(prep, plain, keys)
+    bad = {k: v for k, v in d.items() if not 1 - v > LAYER_COS}
+    if bad:
+        raise AssertionError(f"{what}: the plain chain against the prepared "
+                             f"weights outside the gate: "
+                             f"{list(bad.items())[:4]}")
+    worst = max(d, key=d.get)
+    log(f"  {what} plain chain: {n} valid of {K}, every output finite, the "
+        f"launches of the prepared request; decodes "
+        f"{'alike' if alike else 'apart'}; {len(keys)} tensors, worst "
+        f"1 - cosine against the prepared request {d[worst]:.3e} ({worst}), "
+        f"gated at {1 - LAYER_COS:.0e}")
+
+
+def graphs_phase(dev, models, canvases=GRAPH_CANVASES,
+                 graphs=None) -> dict:
     """The ``[graphs]`` phase: the flagship through ``CapturedInference``
-    at each canvas, per dtype (``graph_requests``); with ``timing``, the
-    bf16 requests' windows beside the eager medians of ``[time]``
-    (``eager_ms`` by (H, W)); then where the f32 pool comes from
-    (``f32_memory``). Returns the launches counted."""
-    dev = torch.device(dev)
+    at each canvas, per dtype (``graph_requests``). Returns the launches
+    counted."""
     launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
-    for dtype_name, model in models.items():
-        window = WINDOW_S if timing and dtype_name == "bfloat16" else 0.0
-        for k, v in graph_requests(dev, "graph", model, canvases, window,
-                                   eager_ms, graphs).items():
+    for model in models.values():
+        for k, v in graph_requests(dev, "graph", model, canvases,
+                                   graphs).items():
             launches[k] += v
-    if dev.type == "cuda" and "float32" in models:
-        f32_memory(models["float32"], make_image(*canvases[-1], dev),
-                   card_line())
     return launches
 
 
@@ -1859,52 +1718,6 @@ def eager_peak(run):
     out = run()
     torch.cuda.synchronize()
     return out, torch.cuda.max_memory_allocated() - a0
-
-
-def f32_memory(model, img, card: str) -> None:
-    """Where an f32 graph's pool comes from at the canvas of ``img``: the
-    largest allocations of one eager request with TF32 off (as the f32
-    gates run), by the line of the port that made them; then one graph
-    with cuDNN's default TF32, its pool beside the eager peak."""
-    from centermask2_tpu_torch.export import CapturedInference
-
-    H, W = img.shape[1:3]
-    torch.cuda.synchronize()
-    torch.cuda.memory._record_memory_history(max_entries=100000,
-                                             stacks="python")
-    try:
-        model.inference(img)
-        torch.cuda.synchronize()
-        snap = torch.cuda.memory._snapshot()
-    finally:
-        torch.cuda.memory._record_memory_history(enabled=None)
-    allocs = sorted((e for trace in snap["device_traces"] for e in trace
-                     if e["action"] == "alloc"), key=lambda e: -e["size"])
-    top = []
-    for e in allocs[:4]:
-        where = [f"{os.path.relpath(f['filename'], REPO)}:{f['line']}"
-                 for f in e.get("frames", ())
-                 if f["filename"].startswith(REPO)]
-        top.append(f"{e['size'] / 2 ** 20:.1f} MiB at "
-                   + " < ".join(where[:2]))
-    log(f"  f32 {H}x{W}, TF32 off: the eager request's largest "
-        f"allocations (of {len(allocs)}): " + "; ".join(top))
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        peak = eager_peak(lambda: model.inference(img))[1]
-        torch.cuda.empty_cache()
-        r0 = torch.cuda.memory_reserved()
-        prog = CapturedInference(model)
-        prog(img)
-        pool = pool_bytes(r0)
-        del prog
-        torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-    log(f"  f32 {H}x{W} with cuDNN's default TF32: the eager request "
-        f"allocates at its peak {peak / 2 ** 20:.1f} MiB above its start; "
-        f"one graph's pool holds {pool / 2 ** 20:.1f} MiB ({card})")
 
 
 # --------------------------------------------------------------- serving
@@ -1938,14 +1751,6 @@ def serving_inputs(img: np.ndarray, fixed: int, short: int, dev):
     canvas = s2d_serving_canvas(h, w, fixed, short)
     pack = torch.from_numpy(s2d_pack_u8(img, canvas)).to(dev)
     return pack, torch.tensor([[h, w]], dtype=torch.int32, device=dev), canvas
-
-
-def reduce_outputs(out) -> torch.Tensor:
-    """Every output head reduced into one value (nothing left for the
-    device to skip)."""
-    return out.locations.sum() + out.mask_scores.sum() + \
-        out.pred_boxes.sum() + out.pred_classes.sum() + \
-        out.pred_masks.sum() + out.scores.sum() + out.valid.sum()
 
 
 def check_u8_normalization(model, img, fixed: int, short: int, dev):
@@ -1992,64 +1797,6 @@ def check_s2d_stem(model_s2d, model_plain, xd, img, fixed: int, dev) -> float:
         raise AssertionError(f"s2d stem: max abs err {err} outside "
                              f"{STEM_TOL} x {scale}")
     return err
-
-
-def graph_ms(request) -> tuple:
-    """(eager ms, device ms as a CUDA graph) of one request."""
-    for _ in range(3):  # cuDNN's first calls at a new shape
-        request()
-    torch.cuda.synchronize()
-    eager = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        request()
-        b.record()
-        b.synchronize()
-        eager.append(a.elapsed_time(b))
-    med = float(np.median(eager))
-    return med, device_ms_per_request(request, med)
-
-
-def serving_times(model, imgs, fixed: int, short: int, dev) -> None:
-    """Device ms per bf16 request by CUDA-graph replay at each tight
-    canvas (tight compute) and at the deployment canvas (pad-back), the
-    host's pack time per image, and the bytes each request sends."""
-    from centermask2_tpu_torch.data import s2d_pack_u8, s2d_serving_canvas
-
-    card = card_line()
-    cases = []
-    for img in imgs:
-        x, hw, canvas = serving_inputs(img, fixed, short, dev)
-        cases.append((f"{canvas[0]}x{canvas[1]} tight compute", x, hw, None))
-    x, hw, _ = serving_inputs(imgs[1], fixed, short, dev)
-    cases.append((f"{fixed}x{fixed} pad-back of the {imgs[1].shape[0]}x"
-                  f"{imgs[1].shape[1]} pack", x, hw, (fixed, fixed)))
-    for name, x, hw, canvas in cases:
-        eager, device = graph_ms(
-            lambda x=x, hw=hw, c=canvas: reduce_outputs(
-                model.inference(x, None, hw, c)))
-        log(f"  bf16 {name}: device {device:.3f} ms/req as a CUDA graph, "
-            f"eager median of 5 {eager:.3f} ms ({card})")
-    x, hw = cases[1][1:3]
-    profile_request(lambda: model.inference(x, None, hw),
-                    f"bf16 {cases[1][0]} request")
-    for img in imgs:
-        h, w = img.shape[:2]
-        canvas = s2d_serving_canvas(h, w, fixed, short)
-        times = []
-        for _ in range(7):
-            t0 = time.perf_counter()
-            pack = s2d_pack_u8(img, canvas)
-            times.append((time.perf_counter() - t0) * 1e3)
-        full = (fixed // 4 + 1) ** 2 * 48
-        log(f"  host pack {h}x{w} over {canvas[0]}x{canvas[1]}: median "
-            f"{np.median(times):.3f} ms (numpy, 7 runs; "
-            f"{len(os.sched_getaffinity(0))} host CPUs); bytes per request "
-            f"{pack.nbytes} uint8 tight, {full} uint8 full canvas, "
-            f"{fixed * fixed * 3 * 4} f32 NHWC canvas "
-            f"({fixed * fixed * 12 / pack.nbytes:.2f}x the tight pack)")
 
 
 def check_captured(seen, what: str, errs: dict) -> None:
@@ -2145,8 +1892,6 @@ def serving(dev, models, cfg, fixed: int = FIXED, short: int = SHORT,
 
     per_level = per_level_request(cfg, models["bfloat16"], imgs[0], fixed,
                                   short, dev, K, timing, errs)
-    if timing:
-        serving_times(model, imgs, fixed, short, dev)
     return model, launches, per_level, errs
 
 
@@ -3453,7 +3198,6 @@ def train_phase(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
 
 
 # ------------------------------------------------------------- backbones
-BACKBONE_WINDOW_S = 2.0  # the windows of the backbones after R-50
 FROZEN_R50 = ("backbone.stem_conv1.", "backbone.res2_")  # FREEZE_AT 2
 
 
@@ -3729,6 +3473,19 @@ def layer_outputs(model, run) -> dict:
     return got
 
 
+# the ``layer_outputs`` keys that say what the decode selected
+SELECTION_KEYS = ("out/locations", "out/pred_classes", "out/valid")
+
+
+def gated_keys(a: dict, b: dict):
+    """Whether two ``layer_outputs`` selected alike (``SELECTION_KEYS``
+    equal) and the keys to gate: every trunk, FPN and FCOS output, the
+    other outputs too where they selected alike."""
+    alike = all(torch.equal(a[k], b[k]) for k in SELECTION_KEYS)
+    return alike, [k for k in a if not k.startswith("out/")
+                   or (alike and k not in SELECTION_KEYS)]
+
+
 def layer_cos(a: dict, b: dict, keys) -> dict:
     """1 - cosine of each key's two tensors (f64 on the device)."""
     out = {}
@@ -3775,7 +3532,6 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
     model32.load_state_dict(model.state_dict(), strict=True)
     want_folded = folded_norms(model)
     K = model.decode_kwargs["post_nms_topk"]
-    sel = ("out/locations", "out/pred_classes", "out/valid")
     for short, m in (("f32", model32), ("bf16", model)):
         prepared0 = tracing.counter("weights_prepared") or 0.0
         with exact_f32() if short == "f32" else contextlib.nullcontext():
@@ -3803,9 +3559,7 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
                     raise AssertionError(f"{what}: the replay's {differ} "
                                          "differ from the eager request on "
                                          "the prepared weights")
-                alike = all(torch.equal(prep[k], plain[k]) for k in sel)
-                keys = [k for k in prep if not k.startswith("out/")
-                        or (alike and k not in sel)]
+                alike, keys = gated_keys(prep, plain)
                 if short == "f32":
                     d = layer_cos(prep, plain, keys)
                     bad = {k: v for k, v in d.items() if not 1 - v > LAYER_COS}
@@ -3816,7 +3570,7 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
                         ref = layer_outputs(model32, lambda: model32.inference(
                             x, None, hw))
                     keys = [k for k in keys if not k.startswith("out/") or
-                            all(torch.equal(ref[j], plain[j]) for j in sel)]
+                            all(torch.equal(ref[j], plain[j]) for j in SELECTION_KEYS)]
                     dp, dq = layer_cos(prep, ref, keys), layer_cos(plain, ref,
                                                                    keys)
                     bad = {k: (dp[k], dq[k]) for k in keys if not dp[k] <=
@@ -3908,8 +3662,7 @@ def prepared_phase(dev, cfgs=None, requests=PREPARED_REQUESTS,
     return launches
 
 
-def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
-                    windows=(WINDOW_S, BACKBONE_WINDOW_S), train=None,
+def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
                     eval_kw=None, graphs=None, train_graphs=None,
                     timing: bool = True, u8_kw=None):
     """The ``[backbones]`` phase: the other backbone families at full
@@ -3945,8 +3698,7 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
 
     cfg = cfgs["R-50"]
     model = build_model(cfg, dev)
-    add(graph_requests(dev, "R-50", model, canvases,
-                       windows[0] if timing else 0.0, graphs=graphs,
+    add(graph_requests(dev, "R-50", model, canvases, graphs=graphs,
                        errs=errs))
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
@@ -3967,8 +3719,7 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
     drop()
     for name in ("R-101", "MobileNetV2", "V-19-dw-eSE", "V-19-slim-dw-eSE"):
         model = build_model(cfgs[name], dev)
-        add(graph_requests(dev, name, model, canvases[:1],
-                           windows[1] if timing else 0.0, graphs=graphs))
+        add(graph_requests(dev, name, model, canvases[:1], graphs=graphs))
         del model
         drop()
     for name in ("R-50", "R-101"):
@@ -3979,7 +3730,6 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
 
 
 # ------------------------------------------------------------- keypoints
-KEYPOINT_WINDOW_S = 2.0  # the windows of the adaptive and DCN requests
 ADAPTIVE_SIDES = (16, 1300)  # gt sides of the adaptive step: every bucket
 
 
@@ -4154,8 +3904,7 @@ def adaptive_step(dev, cfg, fixed: int = FIXED, batch: int = TRAIN_BATCH,
     return counts
 
 
-def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
-                    windows=(WINDOW_S, KEYPOINT_WINDOW_S), train=None,
+def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
                     eval_kw=None, adaptive=None, graphs=None,
                     train_graphs=None, timing: bool = True):
     """The ``[keypoints]`` phase, at full width, bf16, random weights from
@@ -4165,7 +3914,7 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
        eagerly and through ``CapturedInference`` (``graph_requests``: the
        launches, the replay equal to the eager request slot by slot,
        ``pred_keypoints`` included, kernels 1 and 2 against their plain
-       versions on the request's inputs, a captured and an eager window);
+       versions on the request's inputs);
     2. its eval entry point over a synthetic person-keypoint set, captured
        and eager (``keypoint_eval``, the OKS task; the ground truth at AP
        100);
@@ -4176,7 +3925,7 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
        every one against its plain version; kernel 2 at s = 4 timed on the
        request's input), then ``adaptive_step``;
     5. the deformable convs on the flagship (``dcn_cfg``): one request,
-       eager and captured, the replay equal to eager, timed.
+       eager and captured, the replay equal to eager.
 
     ``cfgs``: "keypoint", "adaptive", "dcn" -> config; ``train``,
     ``eval_kw``, ``adaptive``: keyword arguments of ``backbone_train``,
@@ -4201,8 +3950,7 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
             torch.cuda.empty_cache()
 
     model = build_model(cfgs["keypoint"], dev)
-    add(graph_requests(dev, "keypoint V-39", model, canvases,
-                       windows[0] if timing else 0.0, graphs=graphs,
+    add(graph_requests(dev, "keypoint V-39", model, canvases, graphs=graphs,
                        errs=errs))
     add(keypoint_eval(dev, model, graphs=graphs, **(eval_kw or {})))
     del model
@@ -4217,8 +3965,7 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
 
     model = build_model(cfgs["adaptive"], dev)
     add(graph_requests(dev, "adaptive V-39", model, canvases[:1],
-                       windows[1] if timing else 0.0, graphs=graphs,
-                       errs=errs, roi_per_request=3))
+                       graphs=graphs, errs=errs, roi_per_request=3))
     if timing:
         img = make_image(*canvases[0], dev)
         seen = record_launches(lambda: model.inference(img))
@@ -4232,8 +3979,7 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES,
     drop()
 
     model = build_model(cfgs["dcn"], dev)
-    add(graph_requests(dev, "DCN V-39", model, canvases[:1],
-                       windows[1] if timing else 0.0, graphs=graphs,
+    add(graph_requests(dev, "DCN V-39", model, canvases[:1], graphs=graphs,
                        errs=errs))
     del model
     drop()
@@ -5528,37 +5274,9 @@ def flagship_phases(dev, nms_err: int, roi_err: float):
     nms["max_abs_err"], roi["max_abs_err"] = nms_err, roi_err
     del seen
 
-    log(f"[time] per-image latency, B=1, CUDA events: {PASSES} passes over "
-        f"the canvases and dtypes; each a {WARMUP_S} s warm-up, then a "
-        f"window of >= {WINDOW_S} s and >= {MIN_TIMED} requests ({card}; "
-        f"{len(os.sched_getaffinity(0))} host CPUs)")
-    eager_ms = {}
-    for p in range(1, PASSES + 1):
-        for dtype_name, model in models.items():
-            note = "bf16" if dtype_name == "bfloat16" else "f32, TF32 off"
-            for img in (images[0], images[3]):
-                H, W = img.shape[1:3]
-                clk = gpu_clocks()
-                r = latency_window(model, img)
-                if dtype_name == "bfloat16":
-                    eager_ms[(H, W)] = r["median"]
-                log(f"  pass {p} {H}x{W} {note}: {r['n']} requests after "
-                    f"{r['warmup']} warm-up; ms/img median {r['median']:.3f} "
-                    f"[q1 {r['q1']:.3f}, q3 {r['q3']:.3f}] min {r['min']:.3f} "
-                    f"max {r['max']:.3f}, first 20 {r['first20']:.3f}; host "
-                    f"enqueue median {r['enqueue']:.3f}, thread CPU share "
-                    f"{r['cpu_share']:.3f}, gc {r['gc_ms']:.3f} ms/req, "
-                    f"involuntary switches {r['ivcsw']:.2f}/req; device "
-                    f"{r['device']:.3f} ms/req as a CUDA graph (idle share "
-                    f"{max(0.0, 1 - r['device'] / r['median']):.3f}); sm/max "
-                    f"MHz, C before: {clk} ({card})")
-    profile_request(lambda: models["bfloat16"].inference(images[0]),
-                    "bf16 800x1088 request")
-    torch.cuda.synchronize()
-
     log("[graphs] the flagship through CapturedInference (one CUDA graph "
         f"per canvas), bf16 and f32 (TF32 off) ({card})")
-    graph_launches = graphs_phase(dev, models, eager_ms)
+    graph_launches = graphs_phase(dev, models)
 
     log("[serving] zy_model_serving.yaml: uint8 s2d tight packs, the s2d "
         "stem, the per-level decode, the same parameters as [serve]")
@@ -5617,8 +5335,8 @@ def main() -> int:
     check_section_stamp(dev)
 
     # the V-39 phases run f32 without TF32, as their f32 gates (the s2d
-    # stem within STEM_TOL, f32 replays against eager) and f32 times
-    # need; [backbones] runs at PyTorch's defaults, as the entry points do
+    # stem within STEM_TOL, f32 replays against eager) need; [backbones]
+    # runs at PyTorch's defaults, as the entry points do
     with exact_f32():
         nms, roi, bwd, v39_launches = flagship_phases(dev, nms_err, roi_err)
 

@@ -180,21 +180,24 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
     of each kernel by the eager request, 3 at the first call (2 warm-up
     requests and the capture) and none at a replay; the replays equal the
     eager requests slot by slot; each call a row of the section ring with
-    its canvas's program key."""
+    its canvas's program key; the plain chain's request beside the
+    prepared one, held to it by the f32 gate."""
     from test_torch_captured import FakeGraphs
 
     model = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()),
                                    "cpu")
     launches = chip_smoke.graphs_phase(
-        "cpu", {"bfloat16": model, "float32": model}, {},
-        canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs(),
-        timing=False)
-    assert launches == {"nms": 16, "roi_align": 16, "group_norm_relu": 0}
+        "cpu", {"bfloat16": model, "float32": model},
+        canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs())
+    # per dtype and canvas: 1 + 3, and the plain and prepared requests' 2
+    assert launches == {"nms": 24, "roi_align": 24, "group_norm_relu": 0}
     out = capsys.readouterr().out
     for canvas in ("64x64", "96x64"):
         assert f"graph f32 {canvas} replay vs eager scores: max abs err " \
             "0.000e+00" in out
         assert f"graph f32 {canvas}: " in out
+        assert out.count(f"graph f32 {canvas} plain chain: ") == 2
+    assert out.count(", gated at 1e-05\n") == 4
     assert out.count("kernels 1 and 2 launched once by the eager request, "
                      "3 times by the capture (2 warm-up requests + the "
                      "capture), not by a replay; the replay equals the eager "
@@ -395,11 +398,12 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
         timing=False,
         u8_kw=dict(requests=((110, 64, 64, (64, 64)), (111, 60, 90, None)),
                    fixed=96, short=64))
-    # R-50: 2 canvases x (1 + 3) + the f32 request's 4 + eval 3 + 3 +
-    # train 4 (captured) + 3 (eager); the other four backbones 4 each;
-    # R-50 and R-101 from the uint8 pack: 2 requests x (1 eager + 3 + 3,
-    # the two programs' captures) each; kernel 3 none on the CPU
-    assert launches == {"nms": 69, "roi_align": 69, "roi_align_backward": 7,
+    # R-50: 2 canvases x (1 + 3 + 2) + the f32 request's 6 + eval 3 + 3 +
+    # train 4 (captured) + 3 (eager); the other four backbones 6 each (a
+    # request's 1 + 3, and the plain and prepared requests' 2); R-50 and
+    # R-101 from the uint8 pack: 2 requests x (1 eager + 3 + 3, the two
+    # programs' captures) each; kernel 3 none on the CPU
+    assert launches == {"nms": 83, "roi_align": 83, "roi_align_backward": 7,
                         "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
@@ -408,6 +412,7 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
                  "MobileNetV2 f32 64x64", "V-19-dw-eSE f32 64x64",
                  "V-19-slim-dw-eSE f32 64x64"):
         assert f"  {what}: " in out and f"{what} replay vs eager scores" in out
+        assert f"  {what} plain chain: " in out
         assert f"{what[:-6]}: 1 graphs captured" in out or \
             f"{what[:-6]}: 2 graphs captured" in out
     assert out.count("every output bit-equal True") == 7
@@ -508,17 +513,18 @@ def test_keypoints_phase_rehearsal(rehearsal, capsys):
         graphs=FakeGraphs(),
         train_graphs=lambda m, o, s: FakeGraphs(_state(m, o, s)),
         timing=False)
-    # keypoint: 2 canvases x (1 + 3) + eval 3 + 3 + train 4 + 3; adaptive:
-    # (1 + 3) x 3 of kernel 2 and the step's 1 / 3 / 3; DCN: 1 + 3;
-    # kernel 3 none on the CPU
-    assert launches == {"nms": 4 + 4 + 6 + 7 + 4 + 1 + 4,
-                        "roi_align": 8 + 6 + 7 + 12 + 3 + 4,
+    # keypoint: 2 canvases x (1 + 3 + 2) + eval 3 + 3 + train 4 + 3;
+    # adaptive: (1 + 3 + 2) x 3 of kernel 2 and the step's 1 / 3 / 3; DCN:
+    # 1 + 3 + 2 (each + 2: the plain and prepared requests); kernel 3
+    # none on the CPU
+    assert launches == {"nms": 6 + 6 + 6 + 7 + 6 + 1 + 6,
+                        "roi_align": 12 + 6 + 7 + 18 + 3 + 6,
                         "roi_align_backward": 7 + 3, "group_norm_relu": 0}
     assert errs == {"nms": 0, "roi_align": 0.0, "roi_align_backward": 0.0}
     out = capsys.readouterr().out
     for what in ("keypoint V-39 f32 64x64", "keypoint V-39 f32 96x64",
                  "adaptive V-39 f32 64x64", "DCN V-39 f32 64x64"):
-        assert f"  {what}: " in out
+        assert f"  {what}: " in out and f"  {what} plain chain: " in out
         assert f"{what} replay vs eager pred_keypoints" in out or \
             "keypoint" not in what
     assert out.count("every output bit-equal True") == 4

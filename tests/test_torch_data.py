@@ -7,6 +7,7 @@ package's. The JAX s2d functions may take their native C++ path, which
 the JAX package holds bit-equal to its numpy path.
 """
 
+import gc
 import importlib
 import json
 import threading
@@ -217,6 +218,30 @@ def test_prefetch_stops_producer_when_closed():
             t.join(timeout=5)
             assert not t.is_alive()
     assert threading.active_count() <= n_threads
+
+
+@pytest.mark.parametrize("cycle", [False, True], ids=["plain", "cycle"])
+def test_prefetch_stops_producer_when_dropped(cycle):
+    def endless():
+        i = 0
+        while True:
+            yield i
+            i += 1
+
+    before = set(threading.enumerate())
+    g = prefetch(endless(), depth=2)
+    first = next(g)
+    assert first == 0
+    (t,) = [t for t in threading.enumerate()
+            if t not in before and t.name == "batch-prefetch"]
+    if cycle:  # unreachable only once the collector breaks the cycle
+        box = [g]
+        box.append(box)
+        del box
+    del g
+    gc.collect()
+    t.join(timeout=5)
+    assert not t.is_alive()
 
 
 def test_coco_dataset_fields_equal(tmp_path):

@@ -459,7 +459,6 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(tpre, "_S2D_SRC", bad)
     monkeypatch.setattr(tpre, "_S2D_BUILD_ROOT", tmp_path / "build")
-    monkeypatch.setattr(tpre, "_S2D_LIB", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tpre.s2d_pack_u8(np.zeros((8, 8, 3), np.uint8), 64)
 

@@ -96,7 +96,7 @@ def test_rle_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(rle, "_SRC", bad)
     monkeypatch.setattr(rle, "_BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        rle._build()
+        rle._lib()
 
 
 def _random_coco(rng, n_img=6, cats=(1, 3, 7)):

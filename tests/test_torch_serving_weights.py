@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from centermask2_tpu_torch.export import CapturedInference
-from centermask2_tpu_torch.layers import (ConvNormAct, FrozenBatchNorm,
-                                          prepared, reset_parameters)
+from centermask2_tpu_torch.layers import (Conv2d, ConvNormAct,
+                                          ConvTranspose2d, FrozenBatchNorm,
+                                          Linear, prepared, reset_parameters)
 from centermask2_tpu_torch.layers.prepared import PreparedWeights
 from centermask2_tpu_torch.models.backbones.fpn import FPN
 from centermask2_tpu_torch.models.backbones.resnet import BottleneckBlock
@@ -100,6 +101,14 @@ def _conv_norm_act(use_act):
 
 # name -> (the module in a compute dtype, its inputs, FrozenBNs folded)
 CASES = {
+    "conv": (lambda dt: Conv2d(8, 16, dtype=dt),
+             lambda: _maps(1, [(2, 8, 9, 11)]), 0),
+    "conv_channels_last": (lambda dt: Conv2d(8, 16, dtype=dt),
+                           lambda: _maps(1, [(2, 8, 9, 11)], True), 0),
+    "deconv": (lambda dt: ConvTranspose2d(8, 16, dtype=dt),
+               lambda: _maps(8, [(2, 8, 7, 5)]), 0),
+    "linear": (lambda dt: Linear(24, 10, dtype=dt),
+               lambda: _maps(9, [(3, 24)]), 0),
     "conv_norm_act": (_conv_norm_act(True), lambda: _maps(1, [(2, 8, 9, 11)]),
                       1),
     "conv_norm_no_act": (_conv_norm_act(False),
@@ -132,7 +141,12 @@ def _forward(name, module, args):
 def test_prepared_module_equals_plain_chain(name, dtype):
     """Each module of the served path on its prepared weights against
     its plain chain (the module docstring's tolerances); a folded
-    FrozenBN is never called."""
+    FrozenBN is never called. Each stored tensor is bit-equal to what the
+    module's ``prepare_weights`` returns, in its strides, and owns its
+    storage: none shares a parameter's or a buffer's, although the plain
+    call's f32 casts are the parameters themselves. With no FrozenBN
+    folded the prepared weights are the plain chain's casts, and the
+    outputs equal the plain chain's bit for bit."""
     build, inputs, folded = CASES[name]
     args = [x.to(dtype) if isinstance(x, torch.Tensor) else
             [t.to(dtype) for t in x] for x in inputs()]
@@ -149,6 +163,19 @@ def test_prepared_module_equals_plain_chain(name, dtype):
     want = _run(_forward(name, m, args), args)
     for h in hooks:
         h.remove()
+    owned = {t.untyped_storage().data_ptr()
+             for t in [*m.parameters(), *m.buffers()]}
+    for (mod, fmt), entry in store.entries.items():
+        with torch.no_grad():
+            plain = mod.prepare_weights(fmt)
+        for e, p in zip(entry, plain, strict=True):
+            assert (e is None) == (p is None)
+            if e is not None:
+                assert torch.equal(e, p) and e.stride() == p.stride()
+                assert e.untyped_storage().data_ptr() not in owned
+    if not folded:
+        for g_, w_ in zip(got, want, strict=True):
+            assert torch.equal(g_, w_)
     ref = _run(_forward(name, m32, args), [a.float() if isinstance(
         a, torch.Tensor) else [t.float() for t in a] for a in args])
     for g_, w_, r_ in zip(got, want, ref, strict=True):
@@ -265,7 +292,7 @@ def test_grad_enabled_loss_never_reads_the_store():
     runs the plain chain: no entry is made and every trained parameter
     gets a gradient, the s2d stem's among them (as
     ``tests/test_torch_train.py::test_s2d_stem_gradients_equal_the_plain_stem``
-    checks for the stem's cache)."""
+    checks against the plain stem)."""
     kw = dict(conv_body="V-19-slim-eSE", num_classes=3, fpn_out_channels=32,
               mask_conv_dim=8, maskiou_conv_dim=8, pre_nms_topk_train=20,
               post_nms_topk_train=10, nms_candidates=20,

@@ -66,7 +66,6 @@ def test_s2d_stem_gradients_equal_the_plain_stem():
                      valid=torch.ones((1, 1), dtype=torch.bool),
                      mask_patches=torch.full((1, 1, 8, 8), 0.7))
     draws = t(rng.rand(1, 11).astype(np.float32))
-    s2d.backbone.s2d_kernels()  # an inference cache must not leak in
     totals = []
     for m, im in ((plain, x), (s2d, stem_space_to_depth(x))):
         total = sum(m.loss(t(im), gt, draws=draws).values())
