@@ -1,7 +1,10 @@
 """Core NN building blocks (NCHW, torch.nn).
 
-The port of ``centermask2_tpu/layers/blocks.py``. Activations are NCHW;
-parameters stay float32 and every conv runs in the module's compute
+The port of ``centermask2_tpu/layers/blocks.py``. Activations are NCHW
+maps; the captured serving program on CUDA runs the trunk's and the
+FPN's maps channels-last (``prepared.channels_last``), which the blocks
+take as they come, each conv reading a weight in its input's format.
+Parameters stay float32 and every conv runs in the module's compute
 dtype (``dtype``: torch.bfloat16 or torch.float32), as the JAX modules
 do with their ``dtype`` field.
 
@@ -15,7 +18,8 @@ The convs and linears take their cast weights from
 ``prepared.weights``: computed on each call, or inside the captured
 serving program (``layers/prepared.py``) prepared once per set of
 weights, where a FrozenBN ``ConvNormAct`` also reads its norm folded
-into the conv.
+into the conv and, with a ReLU after it, runs the conv, bias and ReLU
+in one call (``ops/conv_bias_act.py``).
 Each parameterised block has ``reset_parameters(generator)`` drawing the
 JAX initializer's distribution from an explicit ``torch.Generator``.
 """
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_bias_act import conv_bias_act
 from ..ops.group_norm import group_norm_f32
 from . import prepared
 
@@ -421,20 +426,30 @@ class ConvNormAct(nn.Module):
         fmt = torch.channels_last if nhwc else torch.contiguous_format
         return w.to(c.dtype, memory_format=fmt), b.to(c.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``norm(conv(x))``, plus ``z`` if given (a ResNet bottleneck's
+        shortcut), then the ReLU where ``use_act`` or ``z``. Inside the
+        captured serving program a FrozenBN conv runs on its folded
+        weights, and with a ReLU after it takes its bias, ``z`` and the
+        ReLU into the conv's call (``ops/conv_bias_act.py``)."""
+        act = self.use_act or z is not None
         store = prepared.active()
         if store is not None and isinstance(self.norm, FrozenBatchNorm):
             c = self.conv
-            w, b = store.get(self, prepared.is_channels_last(x))
-            x = F.conv2d(x.to(w.dtype), w, b, c.stride, c.padding, 1,
-                         c.groups)
-        else:
-            x = self.conv(x)
-            if self.norm is not None:
-                x = self.norm(x)
-        if self.use_act:
-            x = F.relu(x)
-        return x
+            w, b = store.get(self, prepared.is_channels_last(x),
+                             fused=int(act))
+            x = x.to(w.dtype)
+            if act:
+                return conv_bias_act(x, w, b, z, c.stride, c.padding,
+                                     c.groups)
+            return F.conv2d(x, w, b, c.stride, c.padding, 1, c.groups)
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if z is not None:
+            x = x + z
+        return F.relu(x) if act else x
 
 
 def reset_parameters(module: nn.Module,

@@ -14,9 +14,17 @@ is for, computed from the parameters once:
 - ``ConvNormAct`` with ``FrozenBatchNorm``: the norm folded into the conv,
   ``w * s`` and ``b_conv * s + b`` (or ``b``), computed in float32 and
   rounded to the compute dtype once; the forward is then the conv with
-  that bias and the ReLU;
+  that bias and, where a ReLU follows, the conv with its whole epilogue
+  in one call (``ops/conv_bias_act.py``; a ResNet bottleneck's ``conv3``
+  adds its shortcut there too);
 - the VoVNet's s2d stem: its zero-embedded kernels with the three
-  FrozenBN scales folded in and the biases as the convs' biases.
+  FrozenBN scales folded in and the biases as the convs' biases, each
+  conv with its epilogue in one call.
+
+On CUDA the served trunk and FPN run channels-last (``channels_last``):
+the model keeps its NHWC input's layout, cuDNN's, so no conv transposes
+its input or its output, and each module reads a weight prepared for
+the format its input comes in.
 
 Only ``export/captured.py::CapturedInference`` reads the store: its
 warm-ups and captures run inside ``serving()``, and a module reads its
@@ -36,7 +44,9 @@ Counters (``utils/tracing.py::count``): ``weights_prepared`` +1 for each
 set of weights prepared (the first, and each refresh after a change);
 ``prepared_convs`` +1 for each conv or linear served from the store (the
 s2d stem counts its three convs); ``folded_norms`` +1 for each FrozenBN
-folded.
+folded; ``fused_convs`` +1 for each conv the store serves through
+``conv_bias_act`` (the s2d stem counts its four calls), each counted at
+its entry.
 """
 
 from __future__ import annotations
@@ -63,6 +73,12 @@ def active() -> Optional["PreparedWeights"]:
     return a[1]
 
 
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether the served trunk and FPN take the map ``x`` channels-last:
+    a CUDA map (cuDNN's NHWC kernels) with the store active."""
+    return x.is_cuda and active() is not None
+
+
 def is_channels_last(x: torch.Tensor) -> bool:
     """Whether a 4-d map is laid out channels-last (and not also NCHW)."""
     return x.dim() == 4 and not x.is_contiguous() and \
@@ -85,7 +101,9 @@ class PreparedWeights:
     which returns its tensors for the input format ``fmt`` (the store
     keeps a detached copy of each), ``prepared_sources()``, the
     parameters and buffers they are computed from, and
-    ``prepared_counts``, the (convs, folded norms) it stands for."""
+    ``prepared_counts``, the (convs, folded norms) it stands for; the
+    module says at ``get`` how many of its convs run through
+    ``conv_bias_act``."""
 
     def __init__(self, model: nn.Module):
         seen, sources = set(), []
@@ -101,6 +119,7 @@ class PreparedWeights:
         self.key = None
         self.convs = 0
         self.folded = 0
+        self.fused = 0
 
     def _key(self):
         return [(t.data_ptr(), t._version) for t in self.sources]
@@ -121,9 +140,11 @@ class PreparedWeights:
         tracing.count("weights_prepared", 1)
         return True
 
-    def get(self, module: nn.Module, fmt=None) -> Tuple[torch.Tensor, ...]:
+    def get(self, module: nn.Module, fmt=None,
+            fused: int = 0) -> Tuple[torch.Tensor, ...]:
         """``module``'s tensors for input format ``fmt``, made at its
-        first call outside a capture."""
+        first call outside a capture; ``fused``: how many of its convs
+        run through ``conv_bias_act`` on them."""
         e = self.entries.get((module, fmt))
         if e is not None:
             return e
@@ -143,6 +164,9 @@ class PreparedWeights:
         tracing.count("prepared_convs", convs)
         if folded:
             tracing.count("folded_norms", folded)
+        if fused:
+            self.fused += fused
+            tracing.count("fused_convs", fused)
         return e
 
     @contextmanager

@@ -5,7 +5,8 @@ convs, each conv followed by ``get_norm(norm)`` (``fpn_lateral{s}_norm``,
 ``fpn_output{s}_norm``; the convs have a bias only with no norm), and
 one of the top blocks: FCOS's LastLevelP6P7 or LastLevelP6 (reference
 modeling/backbone/fpn.py:17-53), detectron2's LastLevelMaxPool (P5
-subsampled by 2), or none.
+subsampled by 2), or none. The captured serving program on CUDA gives
+it channels-last maps, which it keeps.
 """
 
 from __future__ import annotations

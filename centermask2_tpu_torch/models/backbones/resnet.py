@@ -1,6 +1,9 @@
 """ResNet bottom-up of ``build_fcos_resnet_fpn_backbone``, NCHW (the port of
 ``centermask2_tpu/models/backbones/resnet.py``): detectron2's semantics
-for the configs the reference can name.
+for the configs the reference can name. The captured serving program on
+CUDA runs these maps channels-last, and each bottleneck's ``conv3``
+takes its shortcut add and ReLU into its conv's call
+(``layers/blocks.py::ConvNormAct``).
 
 - BasicStem: conv7x7/s2/p3 + norm + relu, then max-pool 3x3/s2/p1 (floor
   mode, -inf padding: ``F.max_pool2d(x, 3, 2, 1)``, not VoVNet's
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import ConvNormAct
+from ...layers import ConvNormAct, prepared
 from ...utils import tracing
 
 RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
@@ -49,12 +52,15 @@ def s2d_to_image(x: torch.Tensor) -> torch.Tensor:
     """The NCHW canvas (B, C, H, W) of a factor-4 s2d input (B, 16C, H/4+1,
     W/4+1), whose channel rho*4C + kap*C + c at (i, j) holds pixel
     (4i + rho - 2, 4j + kap - 2) (``data/preprocess.py::
-    stem_space_to_depth``): pure data movement, exact in any dtype."""
+    stem_space_to_depth``): pure data movement, exact in any dtype. A
+    channels-last input (the served path) gives a channels-last canvas."""
     B, C16, Ho, Wo = x.shape
     C = C16 // 16
+    fmt = torch.channels_last if prepared.is_channels_last(x) else \
+        torch.contiguous_format
     x = x.reshape(B, 4, 4, C, Ho, Wo).permute(0, 3, 4, 1, 5, 2)
     x = x.reshape(B, C, 4 * Ho, 4 * Wo)
-    return x[:, :, 2:4 * Ho - 2, 2:4 * Wo - 2].contiguous()
+    return x[:, :, 2:4 * Ho - 2, 2:4 * Wo - 2].contiguous(memory_format=fmt)
 
 
 def resnet_feature_channels(res2_out: int = 256) -> Dict[str, int]:
@@ -85,9 +91,9 @@ class BottleneckBlock(nn.Module):
                                         use_act=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv3(self.conv2(self.conv1(x)))
+        out = self.conv2(self.conv1(x))
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        return F.relu(out + shortcut)
+        return self.conv3(out, shortcut)
 
 
 class ResNet(nn.Module):

@@ -13,6 +13,10 @@ OSA module's input width differs from its stage width. The stages of
 ``stage_with_dcn`` (MODEL.VOVNET.STAGE_WITH_DCN, standard bodies) take
 deformable 3x3 layers (``layers/deform.py::DeformConvBlock``, DCN v2 with
 ``with_modulated_dcn``).
+
+The captured serving program on CUDA runs these maps channels-last, and
+each FrozenBN conv with a ReLU after it, the s2d stem's among them, runs
+its bias and ReLU in its conv's call (``ops/conv_bias_act.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from torch import nn
 
 from ...layers import (Conv2d, ConvNormAct, DeformConvBlock, eSEModule,
                        get_norm, max_pool2d_ceil, prepared)
+from ...ops.conv_bias_act import conv_bias_act
 from ...utils import tracing
 
 # Stage specs (reference vovnet.py:30-108, JAX vovnet.py:35-72).
@@ -205,34 +210,33 @@ def s2d_stem_forward(xd2: torch.Tensor,
     (``data/preprocess.py::stem_space_to_depth``). Every stem tensor lives
     at stride-4 spatial size with 48-256 channels and all three convs
     are 2x2 VALID convs with zero-embedded kernels: the same sums as the
-    plain stem up to rounding order. Returns the stem output
+    plain stem up to rounding order. Folded kernels (the captured
+    serving program's) run each conv with its bias and ReLU in one call
+    (``conv_bias_act``), stem_3's second half added in the first's; the
+    output is laid out as ``xd2`` is. Returns the stem output
     (B, C3, Hd-1, Wd-1)."""
     kn = kernels
     folded = kn.a1[0] is None
 
-    def conv(x, k, a=None):  # a folded stem's conv adds its bias
-        return F.conv2d(x, k, a[1] if folded and a is not None else None)
-
-    def affine_relu(y, a):
-        return F.relu(y) if folded else F.relu(y * a[0] + a[1])
+    def conv_act(x, k, a, z=None):  # relu(affine(conv(x, k) + z))
+        if folded:  # the scale in k and z; bias, z, ReLU in the conv's call
+            return conv_bias_act(x, k, a[1], z)
+        y = F.conv2d(x, k)
+        return F.relu((y if z is None else y + z) * a[0] + a[1])
 
     # stem_1: the 4 output phases of y1, packed (p, q) row-major
-    y1d = affine_relu(conv(xd2.to(kn.k1.dtype), kn.k1, kn.a1), kn.a1)
+    y1d = conv_act(xd2.to(kn.k1.dtype), kn.k1, kn.a1)
     # stem_2: conv3x3/s1/p1 in s2d space, 2 paired phase convs over the
     # 1-padded y1d (zero rows/cols of y1d are exactly y1's conv padding)
     y1p = F.pad(y1d, (1, 1, 1, 1))
     h = y1d.shape[2]
-    y2_pairs = [affine_relu(conv(y1p[:, :, P:P + h + 1], kn.k2[P], kn.a2),
-                            kn.a2) for P in (0, 1)]
+    y2_pairs = [conv_act(y1p[:, :, P:P + h + 1], kn.k2[P], kn.a2)
+                for P in (0, 1)]
     # stem_3: conv3x3/s2/p1, whose stride-2 output lands on the s2d grid:
     # one phase-(0,0) conv as two channel-half convs over the top/left
-    # zero-padded stem_2 pairs, summed
-    y3 = None
-    for P in (0, 1):
-        part = conv(F.pad(y2_pairs[P], (1, 0, 1, 0)), kn.k3[P],
-                    kn.a3 if P == 0 else None)
-        y3 = part if y3 is None else y3 + part
-    return affine_relu(y3, kn.a3)
+    # zero-padded stem_2 pairs, the second half added to the first's
+    part = F.conv2d(F.pad(y2_pairs[1], (1, 0, 1, 0)), kn.k3[1])
+    return conv_act(F.pad(y2_pairs[0], (1, 0, 1, 0)), kn.k3[0], kn.a3, part)
 
 
 class DWConvBlock(nn.Module):
@@ -388,20 +392,25 @@ class VoVNet(nn.Module):
     def prepared_sources(self) -> List[torch.Tensor]:
         return self._stem_sources() if self.s2d_input else []
 
-    def prepare_weights(self, fmt=None) -> Tuple[torch.Tensor, ...]:
+    def prepare_weights(self, nhwc: bool) -> Tuple[torch.Tensor, ...]:
         """The s2d stem's kernels with the FrozenBNs folded, flat: k1, the
-        two k2 pairs, the two k3 halves, the three biases."""
+        two k2 pairs, the two k3 halves (channels-last for a channels-last
+        input), the three biases."""
         srcs = [t.detach() for t in self._stem_sources()]
         kn = s2d_stem_kernels(*(tuple(srcs[i:i + 3]) for i in (0, 3, 6)),
                               self.dtype, fold=True)
-        return (kn.k1, *kn.k2, *kn.k3, kn.a1[1], kn.a2[1], kn.a3[1])
+        fmt = torch.channels_last if nhwc else torch.contiguous_format
+        return (*(k.contiguous(memory_format=fmt)
+                  for k in (kn.k1, *kn.k2, *kn.k3)),
+                kn.a1[1], kn.a2[1], kn.a3[1])
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if not self.s2d_input:
             return self.stem_3(self.stem_2(self.stem_1(x)))
         store = prepared.active()
         if store is not None:  # the captured serving program's, folded
-            k1, k2a, k2b, k3a, k3b, b1, b2, b3 = store.get(self)
+            k1, k2a, k2b, k3a, k3b, b1, b2, b3 = store.get(
+                self, prepared.is_channels_last(x), fused=4)
             return s2d_stem_forward(x, S2DStemKernels(
                 k1, (k2a, k2b), (k3a, k3b), (None, b1), (None, b2),
                 (None, b3)))

@@ -12,8 +12,9 @@ Each tower is called once over the list of levels and runs layer by
 layer, each layer over every level. Maps are (N, C, H, W). On CUDA with
 autograd off (inference and its captures,
 ``ops/group_norm.py::fused_path``) the head moves each level to
-channels-last memory once: the regular towers' convs then read and write
-NHWC with no cuDNN transposes, each layer's GN and ReLU is one call of
+channels-last memory once (the captured serving program's FPN levels
+come channels-last already): the regular towers' convs then read and
+write NHWC with no cuDNN transposes, each layer's GN and ReLU is one call of
 ``cm2::group_norm_relu`` (kernel 3) over the levels, and the predictors'
 outputs come out channels-last, whose NHWC flattening in the decode is a
 view. A deformable conv writes NCHW: its output moves to channels-last

@@ -49,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import CfgNode
-from ..layers import BatchNorm, no_stat_updates, reset_parameters
+from ..layers import BatchNorm, no_stat_updates, prepared, reset_parameters
 from ..utils import tracing
 from ..utils.comm import Group, mean_reduce
 from ..utils.device import DeviceLike, resolve_device
@@ -305,7 +305,11 @@ class CenterMask(nn.Module):
                 "misaligns against ceil-divided lateral shapes otherwise "
                 "(check TPU.FIXED_EDGE_SIZE or the tight-compute serving "
                 "canvas)")
-        x = images.permute(0, 3, 1, 2).to(self.dtype).contiguous()
+        # the served trunk and FPN keep the input's NHWC layout, cuDNN's
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        x = x.contiguous(memory_format=torch.channels_last if
+                         prepared.channels_last(x) else
+                         torch.contiguous_format)
         if self.remat_backbone and torch.is_grad_enabled():
             # JAX nn.remat: the backward recomputes the backbone from its
             # input; the recomputation leaves BN's running statistics alone

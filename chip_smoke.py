@@ -1533,11 +1533,15 @@ def fused_tower_norms(model) -> int:
         for i in range(t.num_convs))
 
 
-def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
-                   roi_per_request: int = 1) -> dict:
-    """``model`` (``name``) at each canvas of ``canvases`` ((seed, H, W)),
-    eagerly and through one ``CapturedInference``. Gates: one launch of
-    kernel 1, ``roi_per_request`` of kernel 2 (3 with the adaptive
+def graph_requests(dev, name: str, cfg, model, canvases, graphs=None,
+                   errs=None, roi_per_request: int = 1) -> dict:
+    """``model`` (``name``, built from ``cfg`` up to its compute dtype) at
+    each canvas of ``canvases`` ((seed, H, W)), eagerly and through one
+    ``CapturedInference``, its FrozenBN statistics drawn for these
+    requests (``frozen_statistics``: the folded biases nonzero, so that a
+    gate sees them, and the bf16 chains near the f32 one) and its own put
+    back after them, for the phases that use ``model`` next. Gates: one
+    launch of kernel 1, ``roi_per_request`` of kernel 2 (3 with the adaptive
     ROIAlign buckets) and ``fused_tower_norms`` of kernel 3 (on the card;
     none on the CPU) an eager request, ``WARMUP_CALLS`` + 1 times that
     at a capture (the side-stream warm-up and the capture) and none at a
@@ -1547,7 +1551,8 @@ def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
     keypoint model's ``pred_keypoints`` included; bit-equality and the
     worst differences printed). Then the request on the plain chain
     (``plain_request``: outputs checked, the same launches, held to the
-    prepared request by ``[prepared]``'s f32 gate). With ``errs``, each
+    prepared request by ``[prepared]``'s gates, and the control of a
+    dropped bias refused). With ``errs``, each
     kernel launch held
     against its plain version on the eager request's inputs, the worst
     errors into ``errs``. After each canvas the program's section ring
@@ -1565,6 +1570,9 @@ def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
     K = model.decode_kwargs["post_nms_topk"]
     launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
     gn_per_request = fused_tower_norms(model) if cuda else 0
+    own = {k: v.clone() for k, v in model.state_dict().items()
+           if k.endswith(("frozen_scale", "frozen_bias"))}
+    frozen_statistics(model, 0)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1619,7 +1627,8 @@ def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
             + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
             + f"; the eager request allocates at its peak "
             f"{peak / 2 ** 20:.1f} MiB above its start")
-        plain_request(model, img, eager_request, K, want[0], launches, what)
+        plain_request(model, cfg, img, eager_request, K, want[0], launches,
+                      what)
         if errs is not None:
             for args in seen["nms_keep_sorted"]:
                 errs["nms"] = max(errs["nms"],
@@ -1641,10 +1650,33 @@ def graph_requests(dev, name: str, model, canvases, graphs=None, errs=None,
         f"{prog.capture_s:.3f} s (warm-up included); graph pool "
         f"{pool / 2 ** 20:.1f} MiB; {n_params} parameters ({card})")
     del prog
+    model.load_state_dict(own, strict=False)
     return launches
 
 
-def plain_request(model, img, prepared, K: int, per_request, launches,
+@contextlib.contextmanager
+def bias_dropped(calls: list):
+    """Inside the block, each call of ``ops/conv_bias_act.py`` from the
+    served path (``ConvNormAct``, the VoVNet's s2d stem) drops its bias:
+    a wrong fused epilogue, the control that a gate of the served path
+    has to refuse. ``calls`` gets an entry a call."""
+    from centermask2_tpu_torch.layers import blocks
+    from centermask2_tpu_torch.models.backbones import vovnet
+
+    fused = blocks.conv_bias_act
+
+    def dropped(x, w, b, *args):
+        calls.append(1)
+        return fused(x, w, torch.zeros_like(b), *args)
+
+    blocks.conv_bias_act = vovnet.conv_bias_act = dropped
+    try:
+        yield
+    finally:
+        blocks.conv_bias_act = vovnet.conv_bias_act = fused
+
+
+def plain_request(model, cfg, img, prepared, K: int, per_request, launches,
                   what: str) -> None:
     """``model.inference(img)`` on the plain chain (weights cast on each
     call, FrozenBN unfolded: eager eval's, the CLIs' and
@@ -1653,14 +1685,19 @@ def plain_request(model, img, prepared, K: int, per_request, launches,
     outputs' shapes, finiteness and a valid detection
     (``check_outputs``); each request launching kernels 1, 2 and 3
     ``per_request`` times, added to ``launches``; every trunk, FPN and
-    FCOS output of the two above cosine ``LAYER_COS``, the outputs too
-    where both decodes selected alike (``[prepared]``'s f32 gate). It
-    holds in bf16 too: these models keep FrozenBN's initial statistics
-    (scale 1, shift 0), which fold exactly; ``[prepared]`` draws them,
-    and holds the bf16 chains, which then round apart, to an f32
-    reference."""
+    FCOS output of the two, the outputs too where the decodes selected
+    alike, held as ``[prepared]`` holds them: in f32 above cosine
+    ``LAYER_COS`` of each other; in bf16 each against the request of
+    the f32 reference (``f32_reference`` of ``cfg``, TF32 off) within
+    ``PREPARED_BF16_FACTOR`` times the plain chain's distance plus
+    ``PREPARED_BF16_FLOOR``. The control: the prepared request with each
+    fused conv's bias dropped (``bias_dropped``), which the same gate
+    has to refuse where the request fuses a conv."""
     from centermask2_tpu_torch.ops import _kernels
 
+    calls = []
+    with bias_dropped(calls):
+        ctrl = layer_outputs(model, lambda: prepared(img))
     outs = []
 
     def plain_run():
@@ -1679,29 +1716,64 @@ def plain_request(model, img, prepared, K: int, per_request, launches,
     for k in launches:
         launches[k] += counts[k]
     n = check_outputs(outs[0], 1, K, f"{what} plain chain")
-    alike, keys = gated_keys(prep, plain)
-    d = layer_cos(prep, plain, keys)
-    bad = {k: v for k, v in d.items() if not 1 - v > LAYER_COS}
+    ref = None
+    if model.dtype == torch.bfloat16:
+        model32 = f32_reference(cfg, model, img.device)
+        with exact_f32():
+            ref = layer_outputs(model32, lambda: model32.inference(img))
+        del model32
+
+    def gate(prep):
+        """(the keys gated, those outside the gate, a note)"""
+        alike, keys = gated_keys(prep, plain)
+        if ref is None:
+            d = layer_cos(prep, plain, keys)
+            worst = max(d, key=d.get)
+            return keys, {k: v for k, v in d.items() if not 1 - v >
+                          LAYER_COS}, (
+                f"decodes {'alike' if alike else 'apart'}; worst 1 - cosine "
+                f"against the plain request {d[worst]:.3e} ({worst}), gated "
+                f"at {1 - LAYER_COS:.0e}")
+        keys = [k for k in keys if not k.startswith("out/") or all(
+            torch.equal(ref[j], plain[j]) for j in SELECTION_KEYS)]
+        dp, dq = layer_cos(prep, ref, keys), layer_cos(plain, ref, keys)
+        worst = max(keys, key=lambda k: dp[k] - dq[k])
+        return keys, {k: (dp[k], dq[k]) for k in keys if not dp[k] <=
+                      PREPARED_BF16_FACTOR * dq[k] + PREPARED_BF16_FLOOR}, (
+            f"decodes {'alike' if alike else 'apart'}; 1 - cosine against "
+            f"the f32 reference's request: prepared worst "
+            f"{max(dp.values()):.3e}, plain worst {max(dq.values()):.3e}, "
+            f"prepared nearer on {sum(dp[k] <= dq[k] for k in keys)} of "
+            f"{len(keys)}; the largest excess {dp[worst] - dq[worst]:.3e} "
+            f"({worst})")
+
+    keys, bad, note = gate(prep)
     if bad:
         raise AssertionError(f"{what}: the plain chain against the prepared "
                              f"weights outside the gate: "
                              f"{list(bad.items())[:4]}")
-    worst = max(d, key=d.get)
     log(f"  {what} plain chain: {n} valid of {K}, every output finite, the "
-        f"launches of the prepared request; decodes "
-        f"{'alike' if alike else 'apart'}; {len(keys)} tensors, worst "
-        f"1 - cosine against the prepared request {d[worst]:.3e} ({worst}), "
-        f"gated at {1 - LAYER_COS:.0e}")
+        f"launches of the prepared request; {len(keys)} tensors, {note}")
+    if not calls:
+        log(f"  {what} control: no conv fused, none to break")
+        return
+    ckeys, cbad, cnote = gate(ctrl)
+    if not cbad:
+        raise AssertionError(f"{what}: the prepared request with the bias of "
+                             f"its {len(calls)} fused convs dropped passed "
+                             f"the gate ({cnote})")
+    log(f"  {what} control: the bias of the {len(calls)} fused convs "
+        f"dropped, refused on {len(cbad)} of {len(ckeys)} tensors; {cnote}")
 
 
-def graphs_phase(dev, models, canvases=GRAPH_CANVASES,
+def graphs_phase(dev, models, cfg, canvases=GRAPH_CANVASES,
                  graphs=None) -> dict:
-    """The ``[graphs]`` phase: the flagship through ``CapturedInference``
-    at each canvas, per dtype (``graph_requests``). Returns the launches
-    counted."""
+    """The ``[graphs]`` phase: the flagship (``models`` by dtype, built
+    from ``cfg``) through ``CapturedInference`` at each canvas, per dtype
+    (``graph_requests``). Returns the launches counted."""
     launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
     for model in models.values():
-        for k, v in graph_requests(dev, "graph", model, canvases,
+        for k, v in graph_requests(dev, "graph", cfg, model, canvases,
                                    graphs).items():
             launches[k] += v
     return launches
@@ -3410,6 +3482,11 @@ def resnet_u8_requests(dev, name: str, cfg, requests=U8_REQUESTS,
 PREPARED_REQUESTS = ((120, 800, 1088), (121, 1344, 1344))
 PREPARED_BF16_FACTOR = 2.0
 PREPARED_BF16_FLOOR = 1e-6
+# the convs each served model runs through ``ops/conv_bias_act.py``:
+# R-101 its stem and the 3 convs of each of 33 bottlenecks (not the 4
+# projections), V-39 the s2d stem's 4 calls and the 6 convs of each of
+# 6 OSA modules
+PREPARED_FUSED = {"V-39": 40, "R-101": 100}
 
 
 def prepared_cfgs() -> dict:
@@ -3420,6 +3497,18 @@ def prepared_cfgs() -> dict:
     return {"V-39": serving_cfg(), "R-101": r101}
 
 
+def f32_reference(cfg, model, dev):
+    """The f32 twin of ``model`` (built from ``cfg`` up to its compute
+    dtype), TF32 off: the same parameters, the reference the bf16 gates
+    hold the prepared and the plain chain to."""
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    with exact_f32():
+        model32 = build_model(cfg32, dev)
+    model32.load_state_dict(model.state_dict(), strict=True)
+    return model32
+
+
 def folded_norms(model) -> int:
     """The FrozenBNs a captured program of ``model`` folds: every
     ``ConvNormAct`` with one (the s2d stem's three among them)."""
@@ -3427,6 +3516,77 @@ def folded_norms(model) -> int:
 
     return sum(isinstance(m, ConvNormAct) and
                isinstance(m.norm, FrozenBatchNorm) for m in model.modules())
+
+
+# cuDNN's layout transposes around a conv on NCHW maps: the captured
+# program runs the trunk and the FPN channels-last, so none may run
+# before the FCOS head in a replay, and in the head only the centerness
+# predictor's: cuDNN pads its one output channel to eight and writes it
+# back through one nhwcToNchw a level
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def replay_kernels(run, tries: int = 3) -> dict:
+    """The CUDA kernels of one call of ``run()`` (a captured replay) in
+    start order, in a window between two device sleeps, split where the
+    FCOS head's first kernel 3 launch (``gn_stats_kernel``) and the
+    decode's first NMS launch (``nms_mask_kernel``) start them:
+    ``trunk_fpn`` (the stem, backbone and FPN, and the head's first
+    tower convs), ``head`` (the head, and the decode's top-k) and
+    ``rest``. Another window where the profiler lost an anchor (it loses
+    a replay's record now and then)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(REPLAY_PAD_CYCLES)
+            run()
+            torch.cuda._sleep(REPLAY_PAD_CYCLES)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        names = [n for _, n in sorted(
+            (float(e["ts"]), e["name"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel")]
+        head = next((i for i, n in enumerate(names)
+                     if "gn_stats_kernel" in n), None)
+        decode = next((i for i, n in enumerate(names)
+                       if "nms_mask_kernel" in n), None)
+        if head is not None and decode is not None and head < decode:
+            return {"trunk_fpn": names[:head], "head": names[head:decode],
+                    "rest": names[decode:]}
+    raise AssertionError(f"the profiler found no kernel 3 launch before an "
+                         f"NMS launch in a replay in each of {tries} windows")
+
+
+def check_channels_last_trunk(run, levels: int, what: str) -> None:
+    """The cuDNN layout transposes (``TRANSPOSE_KERNELS``) of one replay
+    of ``run()`` (``replay_kernels``): none in its stem, backbone and FPN,
+    and in the FCOS head one ``nhwcToNchw`` for each of its ``levels``
+    (the centerness predictor's), no other."""
+    split = replay_kernels(run)
+    found = {part: [n for n in ks if any(t in n for t in TRANSPOSE_KERNELS)]
+             for part, ks in split.items()}
+    bad = len(found["trunk_fpn"]) or len(found["head"]) != levels or any(
+        "nhwcToNchw" not in n for n in found["head"])
+    if bad:
+        raise AssertionError(f"{what}: cuDNN layout transposes in a replay: "
+                             f"{len(found['trunk_fpn'])} in the trunk and "
+                             f"FPN (0 expected), {found['head'][:6]} in the "
+                             f"FCOS head ({levels} nhwcToNchw expected)")
+    log(f"  {what}: cuDNN layout transposes in a replay: none in the stem, "
+        f"backbone and FPN ({len(split['trunk_fpn'])} kernels before the "
+        f"head's first kernel 3), {levels} in the FCOS head (the "
+        f"centerness predictor's one-channel output, one a level), "
+        f"{len(found['rest'])} after the decode's NMS (the ROI heads' "
+        f"NCHW convs)")
 
 
 def frozen_statistics(model, seed: int) -> None:
@@ -3497,8 +3657,8 @@ def layer_cos(a: dict, b: dict, keys) -> dict:
     return out
 
 
-def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
-                      graphs=None) -> dict:
+def prepared_requests(dev, name: str, cfg, want_fused: int,
+                      requests=PREPARED_REQUESTS, graphs=None) -> dict:
     """``cfg``'s served model (bf16, and f32 with TF32 off) through a
     ``CapturedInference`` (prepared weights: cast once, FrozenBN folded,
     ``layers/prepared.py``) against eager serving on the plain chain,
@@ -3512,8 +3672,11 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
     from the f32 plain request than ``PREPARED_BF16_FACTOR`` times the
     bf16 plain request's distance plus ``PREPARED_BF16_FLOOR``; the
     program's counters: one set of weights prepared, ``folded_norms``
-    FrozenBNs folded. On the V-39's first bf16 request, weights loaded
-    after the capture reach the next replay (``check_prepared_refresh``:
+    FrozenBNs folded, ``want_fused`` convs fused; on the card, no cuDNN
+    layout transpose in the stem, backbone and FPN of the first bf16
+    replay, and in its FCOS head the centerness predictor's alone
+    (``check_channels_last_trunk``). On the V-39's first bf16 request,
+    weights loaded after the capture reach the next replay (``check_prepared_refresh``:
     refreshed in place, no recapture, two more sets prepared with the
     old weights loaded back). Returns the launches counted."""
     from centermask2_tpu_torch.data import s2d_pack_u8
@@ -3523,13 +3686,9 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
 
     dev = torch.device(dev)
     launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
-    cfg32 = cfg.clone()
-    cfg32.TPU.COMPUTE_DTYPE = "float32"
     model = build_model(cfg, dev)
     frozen_statistics(model, 0)
-    with exact_f32():
-        model32 = build_model(cfg32, dev)
-    model32.load_state_dict(model.state_dict(), strict=True)
+    model32 = f32_reference(cfg, model, dev)
     want_folded = folded_norms(model)
     K = model.decode_kwargs["post_nms_topk"]
     for short, m in (("f32", model32), ("bf16", model)):
@@ -3591,22 +3750,29 @@ def prepared_requests(dev, name: str, cfg, requests=PREPARED_REQUESTS,
                     f"the eager request on the prepared weights; decodes "
                     f"{'alike' if alike else 'apart'} (prepared and plain);"
                     f" {len(keys)} tensors gated, {note}")
+                if i == 0 and short == "bf16" and dev.type == "cuda":
+                    check_channels_last_trunk(lambda: prog(x, None, hw),
+                                              len(m.fcos_in_features), what)
                 if i == 0 and short == "bf16" and name == "V-39":
                     check_prepared_refresh(prog, m, x, hw, what)
                 del prep, plain
             sets = (tracing.counter("weights_prepared") or 0.0) - prepared0
             # the refresh check's two loads prepare two sets more
             want_sets = 3 if short == "bf16" and name == "V-39" else 1
-            if sets != want_sets or prog.weights.folded != want_folded:
+            if sets != want_sets or prog.weights.folded != want_folded or \
+                    prog.weights.fused != want_fused:
                 raise AssertionError(
                     f"{name} {short}: {sets} sets of weights prepared "
                     f"({want_sets} expected), {prog.weights.folded} FrozenBNs"
-                    f" folded ({want_folded} expected)")
+                    f" folded ({want_folded} expected), {prog.weights.fused}"
+                    f" convs fused ({want_fused} expected)")
             log(f"  {name} {short}: {len(prog)} graphs; weights_prepared "
                 f"+{sets:g}, prepared_convs {prog.weights.convs}, "
-                f"folded_norms {prog.weights.folded}; process counters "
+                f"folded_norms {prog.weights.folded}, fused_convs "
+                f"{prog.weights.fused}; process counters "
                 + ", ".join(f"{c} {tracing.counter(c) or 0:g}" for c in (
-                    "weights_prepared", "prepared_convs", "folded_norms"))
+                    "weights_prepared", "prepared_convs", "folded_norms",
+                    "fused_convs"))
                 + f" ({card_line()})")
             del prog
     del model, model32
@@ -3647,13 +3813,14 @@ def check_prepared_refresh(prog, model, x, hw, what: str) -> None:
 
 
 def prepared_phase(dev, cfgs=None, requests=PREPARED_REQUESTS,
-                   graphs=None) -> dict:
+                   graphs=None, fused=PREPARED_FUSED) -> dict:
     """The ``[prepared]`` phase: ``prepared_requests`` for each served
-    model of ``cfgs`` (``prepared_cfgs()``). Returns the launches
-    counted."""
+    model of ``cfgs`` (``prepared_cfgs()``), ``fused[name]`` its convs
+    fused. Returns the launches counted."""
     launches = {"nms": 0, "roi_align": 0, "group_norm_relu": 0}
     for name, cfg in (cfgs or prepared_cfgs()).items():
-        counts = prepared_requests(dev, name, cfg, requests, graphs)
+        counts = prepared_requests(dev, name, cfg, fused[name], requests,
+                                   graphs)
         for k in launches:
             launches[k] += counts[k]
         if torch.device(dev).type == "cuda":
@@ -3698,14 +3865,14 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
 
     cfg = cfgs["R-50"]
     model = build_model(cfg, dev)
-    add(graph_requests(dev, "R-50", model, canvases, graphs=graphs,
+    add(graph_requests(dev, "R-50", cfg, model, canvases, graphs=graphs,
                        errs=errs))
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     with exact_f32():
         model32 = build_model(cfg32, dev)
-        add(graph_requests(dev, "R-50, TF32 off,", model32, canvases[:1],
-                           graphs=graphs))
+        add(graph_requests(dev, "R-50, TF32 off,", cfg32, model32,
+                           canvases[:1], graphs=graphs))
     del model32
     drop()
     add(backbone_eval(dev, model, graphs=graphs, **(eval_kw or {})))
@@ -3719,7 +3886,8 @@ def backbones_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
     drop()
     for name in ("R-101", "MobileNetV2", "V-19-dw-eSE", "V-19-slim-dw-eSE"):
         model = build_model(cfgs[name], dev)
-        add(graph_requests(dev, name, model, canvases[:1], graphs=graphs))
+        add(graph_requests(dev, name, cfgs[name], model, canvases[:1],
+                           graphs=graphs))
         del model
         drop()
     for name in ("R-50", "R-101"):
@@ -3950,8 +4118,8 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
             torch.cuda.empty_cache()
 
     model = build_model(cfgs["keypoint"], dev)
-    add(graph_requests(dev, "keypoint V-39", model, canvases, graphs=graphs,
-                       errs=errs))
+    add(graph_requests(dev, "keypoint V-39", cfgs["keypoint"], model,
+                       canvases, graphs=graphs, errs=errs))
     add(keypoint_eval(dev, model, graphs=graphs, **(eval_kw or {})))
     del model
     drop()
@@ -3964,8 +4132,9 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
     drop()
 
     model = build_model(cfgs["adaptive"], dev)
-    add(graph_requests(dev, "adaptive V-39", model, canvases[:1],
-                       graphs=graphs, errs=errs, roi_per_request=3))
+    add(graph_requests(dev, "adaptive V-39", cfgs["adaptive"], model,
+                       canvases[:1], graphs=graphs, errs=errs,
+                       roi_per_request=3))
     if timing:
         img = make_image(*canvases[0], dev)
         seen = record_launches(lambda: model.inference(img))
@@ -3979,8 +4148,8 @@ def keypoints_phase(dev, cfgs=None, canvases=GRAPH_CANVASES, train=None,
     drop()
 
     model = build_model(cfgs["dcn"], dev)
-    add(graph_requests(dev, "DCN V-39", model, canvases[:1], graphs=graphs,
-                       errs=errs))
+    add(graph_requests(dev, "DCN V-39", cfgs["dcn"], model, canvases[:1],
+                       graphs=graphs, errs=errs))
     del model
     drop()
     return launches, errs
@@ -5276,7 +5445,7 @@ def flagship_phases(dev, nms_err: int, roi_err: float):
 
     log("[graphs] the flagship through CapturedInference (one CUDA graph "
         f"per canvas), bf16 and f32 (TF32 off) ({card})")
-    graph_launches = graphs_phase(dev, models)
+    graph_launches = graphs_phase(dev, models, flagship_cfg())
 
     log("[serving] zy_model_serving.yaml: uint8 s2d tight packs, the s2d "
         "stem, the per-level decode, the same parameters as [serve]")

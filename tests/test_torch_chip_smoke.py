@@ -181,14 +181,18 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
     requests and the capture) and none at a replay; the replays equal the
     eager requests slot by slot; each call a row of the section ring with
     its canvas's program key; the plain chain's request beside the
-    prepared one, held to it by the f32 gate."""
+    prepared one, held to it by the f32 gate, which refuses the prepared
+    request with its fused convs' bias dropped."""
     from test_torch_captured import FakeGraphs
 
-    model = chip_smoke.build_model(_tiny_cfg(chip_smoke.flagship_cfg()),
-                                   "cpu")
+    cfg = _tiny_cfg(chip_smoke.flagship_cfg())
+    model = chip_smoke.build_model(cfg, "cpu")
+    own = {k: v.clone() for k, v in model.state_dict().items()}
     launches = chip_smoke.graphs_phase(
-        "cpu", {"bfloat16": model, "float32": model},
+        "cpu", {"bfloat16": model, "float32": model}, cfg,
         canvases=((100, 64, 64), (103, 96, 64)), graphs=FakeGraphs())
+    # the requests' drawn FrozenBN statistics are put back after them
+    assert all(torch.equal(v, own[k]) for k, v in model.state_dict().items())
     # per dtype and canvas: 1 + 3, and the plain and prepared requests' 2
     assert launches == {"nms": 24, "roi_align": 24, "group_norm_relu": 0}
     out = capsys.readouterr().out
@@ -197,7 +201,9 @@ def test_graphs_phase_rehearsal(rehearsal, capsys):
             "0.000e+00" in out
         assert f"graph f32 {canvas}: " in out
         assert out.count(f"graph f32 {canvas} plain chain: ") == 2
-    assert out.count(", gated at 1e-05\n") == 4
+        assert out.count(f"graph f32 {canvas} control: the bias of the 19 "
+                         "fused convs dropped, refused on ") == 2
+    assert out.count(", gated at 1e-05\n") == 8
     assert out.count("kernels 1 and 2 launched once by the eager request, "
                      "3 times by the capture (2 warm-up requests + the "
                      "capture), not by a replay; the replay equals the eager "
@@ -381,7 +387,8 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
     the f32 step against the plain versions; one request each of R-101,
     MobileNetV2 and the two depthwise VoVNets; R-50 and R-101 from the
     uint8 pack, at its own canvas and at its tight canvas, bit-equal to
-    the f32 host path."""
+    the f32 host path. Each request's gate refuses the prepared request
+    with its fused convs' bias dropped (MobileNetV2 fuses none)."""
     from test_torch_captured import FakeGraphs, _state
 
     cfgs = {n: _tiny_backbone_cfg(build())
@@ -413,6 +420,9 @@ def test_backbones_phase_rehearsal(rehearsal, capsys):
                  "V-19-slim-dw-eSE f32 64x64"):
         assert f"  {what}: " in out and f"{what} replay vs eager scores" in out
         assert f"  {what} plain chain: " in out
+        assert f"  {what} control: " + (
+            "no conv fused" if "MobileNet" in what else "the bias of the ") \
+            in out
         assert f"{what[:-6]}: 1 graphs captured" in out or \
             f"{what[:-6]}: 2 graphs captured" in out
     assert out.count("every output bit-equal True") == 7
@@ -437,8 +447,8 @@ def test_prepared_phase_rehearsal(rehearsal, capsys):
     widths from the uint8 pack), f32 in both arms: each replay bit-equal
     to the eager request on the prepared weights, the trunk, FPN and head
     against the plain chain, weights loaded after the capture reaching
-    the next replay, and the counters (V-19-slim folds 19 FrozenBNs,
-    R-101 104)."""
+    the next replay, and the counters (V-19-slim folds 19 FrozenBNs and
+    fuses 20 convs, R-101 104 and 100)."""
     from test_torch_captured import FakeGraphs
 
     r101 = _tiny_backbone_cfg(chip_smoke.resnet_cfg(101))
@@ -446,7 +456,7 @@ def test_prepared_phase_rehearsal(rehearsal, capsys):
     cfgs = {"V-39": _tiny_cfg(chip_smoke.serving_cfg()), "R-101": r101}
     launches = chip_smoke.prepared_phase(
         "cpu", cfgs, requests=((120, 64, 64), (121, 96, 64)),
-        graphs=FakeGraphs())
+        graphs=FakeGraphs(), fused={"V-39": 20, "R-101": 100})
     # 2 models x 2 arms x 2 requests x (3 at the capture + the prepared
     # and the plain eager request); kernel 3 none on the CPU
     assert launches == {"nms": 40, "roi_align": 40, "group_norm_relu": 0}
@@ -461,8 +471,10 @@ def test_prepared_phase_rehearsal(rehearsal, capsys):
         "reach the next replay" in out
     assert "  V-39 f32: 2 graphs; weights_prepared +1, " in out
     assert "  V-39 bf16: 2 graphs; weights_prepared +3, " in out
-    assert out.count("folded_norms 19; process counters") == 2
-    assert out.count("folded_norms 104; process counters") == 2
+    assert out.count("folded_norms 19, fused_convs 20; process counters") \
+        == 2
+    assert out.count("folded_norms 104, fused_convs 100; process "
+                     "counters") == 2
 
 
 def test_keypoint_config_is_its_yaml():
@@ -489,7 +501,9 @@ def test_keypoints_phase_rehearsal(rehearsal, capsys):
     ground truth at AP 100, its training captured and eager and the f32
     step against the plain versions; the adaptive flagship's request (3
     launches of kernel 2 eager, 9 at the capture) and its f32 step (3 of
-    kernels 2 and 2b, each held); the DCN flagship's request."""
+    kernels 2 and 2b, each held); the DCN flagship's request. Each
+    request's gate refuses the prepared request with its fused convs'
+    bias dropped."""
     from test_torch_captured import FakeGraphs, _state
 
     def narrow(cfg):
@@ -525,6 +539,7 @@ def test_keypoints_phase_rehearsal(rehearsal, capsys):
     for what in ("keypoint V-39 f32 64x64", "keypoint V-39 f32 96x64",
                  "adaptive V-39 f32 64x64", "DCN V-39 f32 64x64"):
         assert f"  {what}: " in out and f"  {what} plain chain: " in out
+        assert f"  {what} control: the bias of the " in out
         assert f"{what} replay vs eager pred_keypoints" in out or \
             "keypoint" not in what
     assert out.count("every output bit-equal True") == 4

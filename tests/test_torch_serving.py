@@ -240,12 +240,12 @@ def test_embedded_kernels_follow_new_weights(serving_pair):
 
     prog = CapturedInference(port, graphs=FakeGraphs())
     first = prog(x, None, th, CANVAS).scores.clone()
-    stem = prog.weights.entries[(port.backbone, None)]
+    stem = prog.weights.entries[(port.backbone, False)]
     ptrs = [t.data_ptr() for t in stem]
     load_jax_params(port, other)
     got = prog(x, None, th, CANVAS)
     assert len(prog) == 1
-    assert prog.weights.entries[(port.backbone, None)] is stem
+    assert prog.weights.entries[(port.backbone, False)] is stem
     assert [t.data_ptr() for t in stem] == ptrs
     want = CapturedInference(fresh, graphs=FakeGraphs())(x, None, th, CANVAS)
     for f in got._fields[:7]:
